@@ -1,0 +1,67 @@
+"""Von Neumann graph entropy proxies: Lemma-1 Q and FINGER-H̃.
+
+The port's copy of the eigen-free part of `repro.core.vnge`:
+
+  Q     = 1 - c² (Σ_i s_i² + 2 Σ_E w_ij²),  c = 1/trace(L)   [Lemma 1]
+  H̃(G)  = -Q ln(2 c s_max)                                    [eq. (2)]
+
+Every function accepts graphs with leading batch axes.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+from repro_torch.graphs.types import DenseGraph, EdgeList
+
+Graph = Union[DenseGraph, EdgeList]
+
+__all__ = ["c_from_s_total", "quadratic_q", "strength_stats",
+           "vnge_tilde"]
+
+
+def c_from_s_total(s_total: torch.Tensor) -> torch.Tensor:
+    """c = 1/trace(L) with the empty-graph convention c(0) = 0."""
+    safe = torch.where(s_total > 0, s_total, torch.ones_like(s_total))
+    return torch.where(s_total > 0, 1.0 / safe, torch.zeros_like(s_total))
+
+
+def strength_stats(g: Graph):
+    """(S = trace L, Σ s_i², Σ_E w_ij², s_max) over active nodes."""
+    if isinstance(g, DenseGraph):
+        w = g.masked_weights()
+        s = w.sum(-1)
+        # each undirected edge appears twice in W: Σ_E w² = ½ Σ_ij W_ij².
+        return (s.sum(-1), (s * s).sum(-1),
+                0.5 * (w * w).sum((-2, -1)), s.amax(-1))
+    s = g.strengths()
+    w = g.masked_weights()
+    return s.sum(-1), (s * s).sum(-1), (w * w).sum(-1), s.amax(-1)
+
+
+def _lemma1_cq(s_total, sum_s2, sum_w2):
+    """(c, Q) from the strength statistics — the one home of Lemma 1."""
+    c = c_from_s_total(s_total)
+    return c, 1.0 - c * c * (sum_s2 + 2.0 * sum_w2)
+
+
+def quadratic_q(g: Graph) -> torch.Tensor:
+    """Lemma 1: Q = 1 - c² (Σ s_i² + 2 Σ_E w_ij²)."""
+    s_total, sum_s2, sum_w2, _ = strength_stats(g)
+    return _lemma1_cq(s_total, sum_s2, sum_w2)[1]
+
+
+def h_tilde_from_stats(q, s_total, s_max) -> torch.Tensor:
+    """eq. (2) from (Q, S, s_max); H̃ = 0 on an empty graph (S = 0)."""
+    c = c_from_s_total(s_total)
+    arg = torch.clamp(2.0 * c * s_max, min=1e-30)
+    return torch.where(s_total > 0, -q * torch.log(arg),
+                       torch.zeros_like(q))
+
+
+def vnge_tilde(g: Graph) -> torch.Tensor:
+    """FINGER-H̃ (eq. 2): H̃ = -Q ln(2 c s_max). Eigen-free, O(n + m)."""
+    s_total, sum_s2, sum_w2, s_max = strength_stats(g)
+    _, q = _lemma1_cq(s_total, sum_s2, sum_w2)
+    return h_tilde_from_stats(q, s_total, s_max)

@@ -1,0 +1,75 @@
+"""Carry state and deltas across packages as numpy arrays.
+
+A `FingerState` crosses as a dict of numpy arrays (``q``, ``s_total``,
+``s_max``, ``strengths`` and, for a mask-aware state, ``node_mask``)
+plus its layout's ``n_pad`` and generation; a `GraphDelta` as a dict of
+its arrays plus ``n_nodes``. This is how the tests feed the JAX
+package's state and deltas into the port and the port's back, and it
+imports nothing of either package beyond the port itself.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.state import FingerState
+from repro_torch.graphs.layout import NodeLayout
+from repro_torch.graphs.types import GraphDelta
+from repro_torch.kernels.dispatch import Device, resolve_device
+
+_INT_FIELDS = ("senders", "receivers", "node_ids")
+
+
+def _tensor(name: str, x, device: torch.device) -> torch.Tensor:
+    dtype = np.int32 if name in _INT_FIELDS else np.float32
+    return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+
+
+def state_from_numpy(arrays: Mapping[str, np.ndarray],
+                     n_pad: Optional[int] = None, generation: int = 0,
+                     device: Device = None) -> FingerState:
+    """Dict of numpy arrays → FingerState on ``device`` (``None`` is
+    CUDA). ``n_pad=None`` gives the legacy unmasked state (no layout)."""
+    device = resolve_device(device)
+    t = {k: _tensor(k, v, device) for k, v in arrays.items()
+         if v is not None}
+    layout = None if n_pad is None else NodeLayout(int(n_pad),
+                                                   int(generation))
+    return FingerState(q=t["q"], s_total=t["s_total"], s_max=t["s_max"],
+                       strengths=t["strengths"],
+                       node_mask=t.get("node_mask"), layout=layout)
+
+
+def state_to_numpy(state: FingerState
+                   ) -> Tuple[dict, Optional[int], int]:
+    """FingerState → (dict of numpy arrays, n_pad, generation)."""
+    arrays = {k: v.detach().cpu().numpy()
+              for k, v in state.tensors().items()}
+    if state.layout is None:
+        return arrays, None, 0
+    return arrays, state.layout.n_pad, state.layout.generation
+
+
+def delta_from_numpy(arrays: Mapping[str, np.ndarray], n_nodes: int,
+                     device: Device = None,
+                     layout_generation: Optional[int] = None
+                     ) -> GraphDelta:
+    """Dict of numpy arrays (``senders``, ``receivers``, ``dw``,
+    ``w_old``, ``mask`` and optionally ``node_ids``/``node_flag``) →
+    GraphDelta on ``device`` (``None`` is CUDA). Leading batch axes are
+    kept."""
+    device = resolve_device(device)
+    t = {k: _tensor(k, v, device) for k, v in arrays.items()
+         if v is not None}
+    return GraphDelta(senders=t["senders"], receivers=t["receivers"],
+                      dw=t["dw"], w_old=t["w_old"], mask=t["mask"],
+                      n_nodes=int(n_nodes), node_ids=t.get("node_ids"),
+                      node_flag=t.get("node_flag"),
+                      layout_generation=layout_generation)
+
+
+def delta_to_numpy(delta: GraphDelta) -> dict:
+    """GraphDelta → dict of numpy arrays (``n_nodes`` not included)."""
+    return {k: v.detach().cpu().numpy() for k, v in delta.tensors().items()}

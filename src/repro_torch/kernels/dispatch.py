@@ -1,0 +1,175 @@
+"""Kernel dispatch for the port: device resolution and the CUDA library.
+
+The counterpart of `repro.kernels.dispatch`, rewritten for one NVIDIA
+Hopper card instead of a TPU:
+
+- ``resolve_device`` is the one home of the port's device policy. Entry
+  points run on ``cuda`` unless the caller asks for the CPU; asking for
+  ``cuda`` on a machine without a card raises, it never carries on
+  quietly on the CPU.
+- ``library()`` builds the hand-written kernels under
+  ``src/repro_torch/csrc/*.cu`` at first use — one ``nvcc`` process per
+  source file, all started together, each into a shared object with a
+  plain C interface — and loads them with ``ctypes``. The build goes to
+  ``build/repro_torch/<hash>/`` at the repository root, keyed by a hash
+  of the sources and flags, so an edited ``.cu`` rebuilds and an
+  unchanged one is reused. ``REPRO_TORCH_BUILD_DIR`` moves the build
+  root.
+- There is no fallback. A failed build raises `KernelBuildError` with
+  the compiler's own text, and a launch that CUDA refuses raises
+  `KernelLaunchError` with CUDA's error string (``check_launch``).
+
+The kernel wrappers take their plain PyTorch version only for tensors
+that lie on the CPU, which is how the CPU tests run; for a CUDA tensor
+they launch the kernel or raise.
+
+Build flags: ``-gencode arch=compute_90a,code=sm_90a -O3`` plus
+``--fmad=false``. The scores are the square root of a difference of
+entropies that is about 0 on an unchanged stream, so contracting
+``a*b + c`` into an FMA moves them most of all; without contraction the
+kernels round like the unfused elementwise ops of the plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Union
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+REPO_ROOT = Path(__file__).resolve().parents[3]
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "--fmad=false", "-shared", "-Xcompiler",
+              "-fPIC")
+
+Device = Union[str, torch.device, None]
+
+
+class KernelBuildError(RuntimeError):
+    """``nvcc`` is missing or refused a kernel source."""
+
+
+class KernelLaunchError(RuntimeError):
+    """CUDA refused or failed a kernel launch."""
+
+
+def resolve_device(device: Device = None) -> torch.device:
+    """``None`` → ``cuda``; a ``cuda`` device without a card raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {str(dev)!r}; the port "
+                         "runs on 'cuda' or 'cpu'")
+    return dev
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    cand = home / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise KernelBuildError(
+        "nvcc not found on PATH or under $CUDA_HOME/bin; the CUDA "
+        "kernels of repro_torch are built from source at first use")
+
+
+def build_dir() -> Path:
+    """Where the libraries of the current sources live."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    root = Path(os.environ.get("REPRO_TORCH_BUILD_DIR",
+                               REPO_ROOT / "build" / "repro_torch"))
+    return root / h.hexdigest()[:16]
+
+
+class _Library:
+    """The loaded kernel libraries, one ``ctypes.CDLL`` per source."""
+
+    def __init__(self):
+        self.libs: Dict[str, ctypes.CDLL] = {}
+        self.build_seconds = 0.0
+        self._lock = threading.Lock()
+
+    def load(self) -> Dict[str, ctypes.CDLL]:
+        with self._lock:
+            if not self.libs:
+                t0 = time.perf_counter()
+                self.libs = _build_and_load()
+                self.build_seconds = time.perf_counter() - t0
+        return self.libs
+
+
+def _build_and_load() -> Dict[str, ctypes.CDLL]:
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    sources = sorted(CSRC.glob("*.cu"))
+    if not sources:
+        raise KernelBuildError(f"no CUDA sources under {CSRC}")
+    nvcc = _nvcc()
+    procs = {}
+    for src in sources:
+        so = out / f"lib{src.stem}.so"
+        if so.is_file():
+            continue
+        tmp = out / f"lib{src.stem}.so.tmp{os.getpid()}"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(src)]
+        procs[src.stem] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, so, cmd)
+    errors = []
+    for stem, (proc, tmp, so, cmd) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{' '.join(cmd)}\n{text}")
+        else:
+            os.replace(tmp, so)
+    if errors:
+        raise KernelBuildError("nvcc failed:\n" + "\n".join(errors))
+    return {src.stem: ctypes.CDLL(str(out / f"lib{src.stem}.so"))
+            for src in sources}
+
+
+_LIBRARY = _Library()
+
+
+def library() -> Dict[str, ctypes.CDLL]:
+    """Build (first call) and return the kernel libraries by source stem."""
+    return _LIBRARY.load()
+
+
+def build_seconds() -> float:
+    """Seconds the first `library()` call spent building and loading."""
+    return _LIBRARY.build_seconds
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise with CUDA's own text when a launch returned an error code."""
+    if err != 0:
+        fn = library()[name].repro_cuda_error_string
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_char_p
+        text = fn(int(err))
+        raise KernelLaunchError(
+            f"{name} launch failed with CUDA error {err}: "
+            f"{text.decode() if text else 'unknown'}")
+
+
+def stream_handle(device: torch.device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as a Python int."""
+    return torch.cuda.current_stream(device).cuda_stream

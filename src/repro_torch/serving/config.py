@@ -1,0 +1,200 @@
+"""ServiceConfig: the one declarative description of a FINGER service.
+
+The port's counterpart of `repro.serving.config`. It keeps every field
+and every check of the reference that concerns the local placement, and
+rejects by name, as "not yet ported", the options whose code the port
+does not have yet:
+
+- ``placement`` other than ``"local"`` (the sharded and multipod plans);
+- ``ingestion="double_buffered"``;
+- ``method="sparse_tick"`` (the slot-space path);
+- a checkpoint directory (save/restore);
+- ``compilation_cache_dir`` (a JAX compilation cache has no counterpart
+  until the port captures CUDA graphs).
+
+``ingestion`` defaults to ``"sync"`` here, the one ingestion the port
+has; the reference defaults to ``"double_buffered"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, List, Optional, Tuple, Union
+
+PLACEMENTS = ("local", "sharded", "multipod")
+INGESTIONS = ("sync", "double_buffered")
+METHODS = ("dense", "compact", "fused_tick", "sparse_tick")
+
+PrunePolicy = Union[int, Tuple, Callable[[List[int]], Any]]
+
+
+class ServiceConfigError(ValueError):
+    """A ServiceConfig field (or combination) is invalid, or names an
+    option the port has not ported yet."""
+
+
+def _not_yet_ported(what: str) -> ServiceConfigError:
+    return ServiceConfigError(
+        f"{what} is not yet ported to repro_torch; the port serves "
+        "placement='local', ingestion='sync' and the dense, compact and "
+        "fused_tick methods without checkpoints")
+
+
+def _validate_prune_policy(policy: PrunePolicy) -> None:
+    """The accepted prune-policy forms of `repro.train.checkpoint`: an
+    int k > 0, ('keep_last', k), ('keep_every_n', n, k), or a callable."""
+    if callable(policy):
+        return
+    if isinstance(policy, int) and not isinstance(policy, bool):
+        if policy <= 0:
+            raise ServiceConfigError(
+                f"prune policy: prune_policy keep_last={policy} must be "
+                "positive")
+        return
+    if isinstance(policy, tuple) and policy:
+        if policy[0] == "keep_last" and len(policy) == 2:
+            return _validate_prune_policy(policy[1])
+        if policy[0] == "keep_every_n" and len(policy) == 3:
+            _, n, k = policy
+            if not (isinstance(n, int) and n > 0):
+                raise ServiceConfigError(
+                    f"prune policy: keep_every_n period must be a "
+                    f"positive int, got {n!r}")
+            return _validate_prune_policy(k)
+    raise ServiceConfigError(
+        f"prune policy: unknown prune_policy {policy!r}; want an int, "
+        "('keep_last', k), ('keep_every_n', n, k), or a callable")
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointPolicy:
+    """Where and how the stacked serving state persists
+    (``directory=None``: the service is ephemeral)."""
+
+    directory: Optional[str] = None
+    prune: PrunePolicy = 3
+    every_ticks: Optional[int] = None
+
+    def validate(self) -> None:
+        if self.every_ticks is not None and self.every_ticks <= 0:
+            raise ServiceConfigError(
+                f"CheckpointPolicy.every_ticks must be positive, got "
+                f"{self.every_ticks}")
+        if self.every_ticks is not None and self.directory is None:
+            raise ServiceConfigError(
+                "CheckpointPolicy.every_ticks set but directory is None; "
+                "periodic saves need somewhere to go")
+        _validate_prune_policy(self.prune)
+        if self.directory is not None:
+            raise _not_yet_ported("CheckpointPolicy.directory "
+                                  "(checkpoint save/restore)")
+
+
+@dataclasses.dataclass(frozen=True)
+class TopKSpec:
+    """Default width of `top_anomalies` queries."""
+
+    k: int = 8
+
+    def validate(self) -> None:
+        if self.k <= 0:
+            raise ServiceConfigError(f"TopKSpec.k must be positive, "
+                                     f"got {self.k}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServiceConfig:
+    """Declarative FINGER serving configuration.
+
+    Parameters
+    ----------
+    batch_size : number of concurrent streams B.
+    n_pad : shared static node layout size.
+    k_pad : delta-edge slots per stream per tick.
+    j_pad : node join/leave slots per delta (None = no node slots).
+    method : ``"dense"`` / ``"compact"`` Δ-statistics on the stacked
+        tensors, or ``"fused_tick"`` — one `stream_tick` kernel launch
+        per tick.
+    n_slots, m_pad : sparse-only capacities; must be None here.
+    exact_smax : recompute s_max exactly after deletions.
+    placement : ``"local"`` (one device).
+    ingestion : ``"sync"`` — deltas stay on the host until the tick
+        that consumes them, and the copy to the device blocks.
+    max_queue : ingestion queue depth before `ingest` raises.
+    checkpoint : CheckpointPolicy (no directory yet).
+    topk : TopKSpec for `top_anomalies` queries.
+    compilation_cache_dir : must be None.
+    """
+
+    batch_size: int
+    n_pad: int
+    k_pad: int
+    j_pad: Optional[int] = None
+    n_slots: Optional[int] = None
+    m_pad: Optional[int] = None
+    method: str = "dense"
+    exact_smax: bool = False
+    placement: str = "local"
+    ingestion: str = "sync"
+    max_queue: int = 2
+    checkpoint: CheckpointPolicy = CheckpointPolicy()
+    topk: TopKSpec = TopKSpec()
+    compilation_cache_dir: Optional[str] = None
+
+    def validate(self, num_shards: Optional[int] = None) -> None:
+        """Fail fast with a named error; ``num_shards`` adds the
+        divisibility and top-k-width checks of a placement."""
+        if self.batch_size <= 0:
+            raise ServiceConfigError(
+                f"batch_size must be positive, got {self.batch_size}")
+        if self.n_pad <= 0:
+            raise ServiceConfigError(
+                f"n_pad must be positive, got {self.n_pad}")
+        if self.k_pad <= 0:
+            raise ServiceConfigError(
+                f"k_pad must be positive, got {self.k_pad}")
+        if self.j_pad is not None and self.j_pad <= 0:
+            raise ServiceConfigError(
+                f"j_pad must be positive (or None), got {self.j_pad}")
+        if self.method not in METHODS:
+            raise ServiceConfigError(
+                f"method {self.method!r} not in {METHODS}")
+        if self.method == "sparse_tick":
+            raise _not_yet_ported("method='sparse_tick'")
+        if self.n_slots is not None or self.m_pad is not None:
+            raise ServiceConfigError(
+                f"n_slots/m_pad are sparse-only capacities; "
+                f"method={self.method!r} sizes its state by n_pad "
+                f"alone (got n_slots={self.n_slots}, m_pad={self.m_pad})")
+        if self.placement not in PLACEMENTS:
+            raise ServiceConfigError(
+                f"placement {self.placement!r} not in {PLACEMENTS}")
+        if self.placement != "local":
+            raise _not_yet_ported(f"placement={self.placement!r}")
+        if self.ingestion not in INGESTIONS:
+            raise ServiceConfigError(
+                f"ingestion {self.ingestion!r} not in {INGESTIONS}")
+        if self.ingestion != "sync":
+            raise _not_yet_ported(f"ingestion={self.ingestion!r}")
+        if self.max_queue <= 0:
+            raise ServiceConfigError(
+                f"max_queue must be positive, got {self.max_queue}")
+        if self.compilation_cache_dir is not None:
+            if not str(self.compilation_cache_dir).strip():
+                raise ServiceConfigError(
+                    "compilation_cache_dir must be a non-empty path "
+                    "(or None)")
+            raise _not_yet_ported("compilation_cache_dir")
+        self.checkpoint.validate()
+        self.topk.validate()
+        if num_shards is not None:
+            if self.batch_size % num_shards != 0:
+                raise ServiceConfigError(
+                    f"batch_size={self.batch_size} must divide evenly "
+                    f"over {num_shards} shard(s) of the "
+                    f"{self.placement!r} placement")
+            per_shard = self.batch_size // num_shards
+            if self.topk.k > per_shard:
+                raise ServiceConfigError(
+                    f"topk.k={self.topk.k} exceeds the per-shard stream "
+                    f"count {per_shard} (batch_size={self.batch_size} "
+                    f"over {num_shards} shards)")

@@ -1,0 +1,130 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.
+
+Every test here needs a CUDA device: a hand-written CUDA kernel has no
+interpret mode, so on a machine without a card each test skips by name.
+Run them on the card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+
+Tolerances are those of the parity modules (`kernels/*/parity.py`):
+atol 1e-5 with rtol 1e-5 on state and statistics, exact masks, and the
+score compared as a divergence (see `stream_tick.parity`).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.jsdist import jsdist_stream
+from repro_torch.engine.stream import stack_deltas, stack_states
+from repro_torch.kernels.delta_stats import ops as ds_ops
+from repro_torch.kernels.delta_stats import parity as ds_parity
+from repro_torch.kernels.delta_stats.ref import delta_stats_sorted_ref
+from repro_torch.kernels.stream_tick import ops as st_ops
+from repro_torch.kernels.stream_tick import parity as st_parity
+from repro_torch.kernels.stream_tick.ref import stream_tick_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run "
+                    "only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("shape", [(1000, 333, 37, 3),
+                                   (4096, 1024, 128, 8)])
+def test_stream_tick_matches_plain(cuda, shape, exact):
+    states, deltas = st_parity.make_case(*shape, seed=3, device=cuda)
+    before = st_ops.LAUNCHES
+    got = st_ops.stream_tick_fused(states, deltas, exact_smax=exact)
+    torch.cuda.synchronize()
+    assert st_ops.LAUNCHES == before + 1
+    want = stream_tick_ref(states, deltas, exact_smax=exact)
+    st_parity.compare(got, want)
+
+
+@pytest.mark.parametrize("shape", [(64, 4200, 1024, 4), (256, 300, 40, 2)])
+def test_stream_tick_large_k_and_no_node_slots(cuda, shape):
+    """k_pad = 1024 needs ~98 KB of shared memory (the opt-in above
+    48 KB); the second shape drops the node slots (j = 0, no pointers)."""
+    states, deltas = st_parity.make_case(*shape, seed=7, device=cuda)
+    if shape[2] < 1024:
+        deltas = dataclasses.replace(deltas, node_ids=None, node_flag=None)
+    else:
+        assert st_ops.stream_tick_smem_bytes(shape[2], shape[3]) > 48 * 1024
+    for exact in (False, True):
+        got = st_ops.stream_tick_fused(states, deltas, exact_smax=exact)
+        want = stream_tick_ref(states, deltas, exact_smax=exact)
+        st_parity.compare(got, want, f"stream_tick {shape}")
+
+
+def test_stream_tick_stacked_matches_plain(cuda):
+    cases = [st_parity.make_case(64, 200, 16, 4, seed=s, device=cuda)
+             for s in range(3)]
+    states = stack_states([c[0] for c in cases])
+    deltas = stack_deltas([c[1] for c in cases])
+    got = st_ops.stream_tick_fused_stacked(states, deltas, exact_smax=True)
+    want = stream_tick_ref(states, deltas, exact_smax=True)
+    assert got[0].shape == (3, 64)
+    st_parity.compare(got, want, label="stream_tick_stacked")
+
+
+def test_stream_tick_in_place_matches_out_of_place(cuda):
+    states, deltas = st_parity.make_case(512, 256, 32, 4, seed=5,
+                                         device=cuda)
+    want = st_ops.stream_tick_fused(states, deltas, exact_smax=True)
+    copy = states.map_tensors(torch.clone)
+    got = st_ops.stream_tick_fused(copy, deltas, exact_smax=True,
+                                   inplace=True)
+    assert got[1].strengths.data_ptr() == copy.strengths.data_ptr()
+    for a, b in zip([got[0], *got[1].tensors().values()],
+                    [want[0], *want[1].tensors().values()]):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_stream_tick_refuses_too_much_shared_memory(cuda):
+    states, deltas = st_parity.make_case(8, 40000, 9000, 2, seed=0,
+                                         device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        st_ops.stream_tick_fused(states, deltas)
+
+
+@pytest.mark.parametrize("k", [1, 7, 128, 1000, 5000])
+def test_delta_stats_matches_plain(cuda, k):
+    state, delta = ds_parity.make_case(4096, k, seed=k, device=cuda)
+    prep = ds_ops.prepare_sorted_delta(state.strengths, delta)
+    before = ds_ops.LAUNCHES
+    got = ds_ops.delta_stats_sorted_cuda(*prep)
+    assert ds_ops.LAUNCHES == before + 1
+    ds_parity.compare(got, delta_stats_sorted_ref(*prep))
+
+
+def test_delta_stats_all_masked_gives_minus_inf(cuda):
+    state, delta = ds_parity.make_case(256, 64, seed=1, device=cuda,
+                                       all_masked=True)
+    prep = ds_ops.prepare_sorted_delta(state.strengths, delta)
+    got = ds_ops.delta_stats_sorted_cuda(*prep).cpu().numpy()
+    assert got[2] == -np.inf and got[3] == 0.0 and got[0] == 0.0
+
+
+def test_single_stream_fused_tick_runs_the_kernel(cuda):
+    state, _ = ds_parity.make_case(300, 16, seed=2, device=cuda)
+    deltas = stack_deltas([ds_parity.make_case(300, 16, seed=10 + t,
+                                               device=cuda)[1]
+                           for t in range(5)])
+    before = ds_ops.LAUNCHES
+    got, _ = jsdist_stream(state, deltas, exact_smax=True,
+                           method="fused_tick")
+    assert ds_ops.LAUNCHES == before + 10  # two updates per tick
+    want, _ = jsdist_stream(state, deltas, exact_smax=True,
+                            method="compact")
+    np.testing.assert_allclose((got.double() ** 2).cpu().numpy(),
+                               (want.double() ** 2).cpu().numpy(),
+                               atol=1e-5, rtol=1e-5)

@@ -1,0 +1,130 @@
+"""The port stands alone and keeps its device rules.
+
+- Importing `repro_torch` and every submodule loads neither JAX nor any
+  module of the JAX package `repro`; neither does ``chip_smoke.py``.
+- Asking for ``cuda`` where CUDA is unavailable raises; nothing carries
+  on quietly on the CPU.
+- On CPU tensors the kernel wrappers run their plain versions and leave
+  their ``LAUNCHES`` counts unchanged.
+"""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.graphs.generators import erdos_renyi
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.delta_stats import ops as ds_ops
+from repro_torch.kernels.delta_stats import parity as ds_parity
+from repro_torch.kernels.stream_tick import ops as st_ops
+from repro_torch.kernels.stream_tick import parity as st_parity
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _foreign(names):
+    return sorted(m for m in names
+                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+
+
+def test_import_every_submodule_loads_no_jax_and_no_repro():
+    names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                    "repro_torch.")]
+    assert "repro_torch.serving.service" in names
+    assert "repro_torch.kernels.stream_tick.ops" in names
+    code = ("import importlib, sys\n"
+            f"for m in {names!r}: importlib.import_module(m)\n"
+            "print('\\n'.join(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split()
+    assert "repro_torch.serving.service" in out
+    assert _foreign(out) == []
+
+
+def test_chip_smoke_imports_no_jax_and_no_repro():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    mods = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.append(node.module)
+    assert "repro_torch.serving" in mods
+    assert _foreign(mods) == []
+
+
+def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+            env.pop("PYTHONPATH")
+        run = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert run.returncode != 0
+        assert '"ok": true' not in run.stdout
+
+
+def test_cuda_requests_raise_without_cuda(monkeypatch):
+    from repro_torch.engine import StreamEngine
+    from repro_torch.serving import FingerService, ServiceConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        dispatch.resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="is_available"):
+        dispatch.resolve_device(None)  # the default is CUDA
+    with pytest.raises(RuntimeError, match="is_available"):
+        StreamEngine(method="fused_tick")
+    g = erdos_renyi(8, 0.5, seed=0, weighted=True)
+    with pytest.raises(RuntimeError, match="is_available"):
+        StreamEngine.init_states([g], n_pad=8)
+    cfg = ServiceConfig(batch_size=1, n_pad=8, k_pad=2,
+                        method="fused_tick")
+    with pytest.raises(RuntimeError, match="is_available"):
+        FingerService.open(cfg, [g], device="cuda")
+    assert dispatch.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_tensors_run_the_plain_versions_without_launches():
+    st_before, ds_before = st_ops.LAUNCHES, ds_ops.LAUNCHES
+    states, deltas = st_parity.make_case(8, 40, 8, 2, seed=0,
+                                         device="cpu")
+    st_ops.stream_tick_fused(states, deltas)
+    st_ops.stream_tick_fused(states, deltas, exact_smax=True, inplace=True)
+    state, delta = ds_parity.make_case(32, 8, seed=0, device="cpu")
+    ds_ops.delta_stats_fused(state, delta)
+    from repro_torch.core.jsdist import jsdist_incremental
+
+    jsdist_incremental(state, delta, method="fused_tick")
+    assert (st_ops.LAUNCHES, ds_ops.LAUNCHES) == (st_before, ds_before)
+
+
+def test_kernel_entry_points_refuse_cpu_tensors():
+    states, deltas = st_parity.make_case(8, 40, 8, 2, seed=0,
+                                         device="cpu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        st_ops._launch(states, deltas, exact_smax=False, inplace=False)
+    state, delta = ds_parity.make_case(32, 8, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ds_ops.delta_stats_sorted_cuda(*ds_ops.prepare_sorted_delta(
+            state.strengths, delta))
+
+
+def test_missing_nvcc_is_a_named_build_error(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(dispatch.KernelBuildError, match="nvcc not found"):
+        dispatch._build_and_load()
