@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FINGER on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed S] [--batch B] [--ticks T]
+    python3 chip_smoke.py [--seed S] [--batch B]
 
 Run from the root of a checkout; it imports `repro_torch` from
 ``src/`` and never JAX or the JAX package. Four phases, each printing a
@@ -13,13 +13,14 @@ line of its own; any failure exits non-zero:
              ``stream_tick`` at the serving size and at a ragged size
              (n_pad not a multiple of 128, odd k, 3 join slots) over
              the edge-case batch of `kernels/stream_tick/parity.py`,
-             both ``exact_smax`` values; ``stream_tick_fused_stacked``
+             both ``exact_smax`` values, out of place and in place;
+             ``stream_tick_fused_stacked``
              at S = 3; ``delta_stats`` at several k and all-masked.
 3. serve   — the main path: `FingerService.open(ServiceConfig(
              method="fused_tick", placement="local", ingestion="sync",
              exact_smax=True, batch_size=32768, n_pad=1024, k_pad=128,
              j_pad=8), graphs)` over `EdgeList` graphs from ``--seed``
-             (per-stream n in 256–1024, about 4n edges), then ``--ticks``
+             (per-stream n in 256–1024, about 4n edges), then 20
              ingest → poll ticks of stacked deltas mixing re-weights,
              deletions, additions, joins and leaves, with a (B, m) host
              mirror of edge weights that keeps every w_old exact and a
@@ -27,16 +28,22 @@ line of its own; any failure exits non-zero:
              planted streams are the top 4; 64 sampled scores match the
              batch `jsdist_tilde` of the mirrored G and G' within 5e-3
              (the bound `tests/test_jsdist.py` holds Algorithm 2 to);
-             ``stream_tick`` launched once per tick.
+             ``stream_tick`` launched once per tick. One more tick,
+             after the checks and outside the launch count, runs under
+             ``torch.profiler`` for the device's busy and idle share.
 4. single  — `jsdist_stream(method="fused_tick")` on one stream for 20
              deltas against the plain method; ``delta_stats`` launched.
 
 Launch counts are set to 0 just before phase 3 and phase 4 and read just
-after each. Kernel times are CUDA-event means at the main path's shapes
-and inputs; bounds come from the bytes each kernel must move at the
-H100's 3.35 TB/s (the arithmetic bound is far below). The line before
-the last is the ``kernels`` JSON object; the last line is the device
-JSON object. Scores and state are compared at the tolerances stated in
+after each. Kernel times are CUDA-event means of the launch the main
+path makes (``stream_tick`` in place, on a copy of a main-path tick's
+state restored before every call), at its shapes and inputs; bounds come
+from the bytes that launch must move at the H100's 3.35 TB/s (the
+arithmetic bound is far below), counting only the state elements this
+run's delta changes as written. The ``stream_tick`` fixed cost is also
+timed with every edge lane masked and with the first 32 lanes only. The
+line before the last is the ``kernels`` JSON object; the last line is
+the device JSON object. Scores and state are compared at the tolerances stated in
 the parity modules (atol 1e-5, rtol 1e-5; the score as a divergence).
 """
 from __future__ import annotations
@@ -51,23 +58,38 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 N_PAD, K_PAD, J_PAD = 1024, 128, 8
+TICKS = 20
 PRIME_STRIDE = 8209  # a prime above every candidate count 8·n_e ≤ 8160
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn`` on the card over ``reps`` calls."""
+def cuda_ms(fn, reps: int, setup=None) -> float:
+    """Mean milliseconds of ``fn`` on the card over ``reps`` calls.
+
+    With ``setup``, it runs untimed before every call, and each call is
+    timed between its own pair of events.
+    """
     import torch
 
-    fn()
-    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    if setup is None:
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+    total = 0.0
+    for rep in range(reps + 1):
+        setup()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end) if rep else 0.0  # first: warm-up
+    return total / reps
 
 
 class Fleet:
@@ -247,14 +269,17 @@ def phase_kernels(args, torch, out, dev):
         states, deltas = st_parity.make_case(*shape, seed=args.seed,
                                              device=dev)
         for exact in (False, True):
-            got = st_ops.stream_tick_fused(states, deltas, exact_smax=exact)
-            torch.cuda.synchronize()
             want = stream_tick_ref(states, deltas, exact_smax=exact)
-            err = st_parity.compare(got, want, f"stream_tick {shape}")
-            errs["stream_tick"] = max(errs["stream_tick"], err)
-            print(f"  stream_tick B,n,k,j={shape} exact_smax={exact}: "
-                  f"max_abs_err={err:.3e}")
-        del states, deltas
+            for inplace in (False, True):
+                work = states.map_tensors(torch.clone) if inplace else states
+                got = st_ops.stream_tick_fused(work, deltas, exact_smax=exact,
+                                               inplace=inplace)
+                err = st_parity.compare(got, want, f"stream_tick {shape}")
+                errs["stream_tick"] = max(errs["stream_tick"], err)
+                print(f"  stream_tick B,n,k,j={shape} exact_smax={exact} "
+                      f"inplace={inplace}: max_abs_err={err:.3e}")
+                del work, got
+        del states, deltas, want
     cases = [st_parity.make_case(2048, N_PAD, K_PAD, J_PAD,
                                  seed=args.seed + s, device=dev)
              for s in range(3)]
@@ -314,13 +339,13 @@ def phase_serve(args, torch, out, dev):
     tick_ms, wall_ms = [], []
     snap = None
     st_ops.LAUNCHES = 0
-    for t in range(args.ticks):
-        last = t == args.ticks - 1
+    for t in range(TICKS):
+        last = t == TICKS - 1
         if last:
             before_w = fleet.w[sampled].copy()
             before_a = fleet.active[sampled].copy()
         deltas = fleet.tick(burst_rows=planted if last else ())
-        if t == args.ticks // 2:
+        if t == TICKS // 2:
             snap = (svc.states().map_tensors(torch.clone),
                     deltas.to(dev))
         h0 = time.perf_counter()
@@ -337,9 +362,9 @@ def phase_serve(args, torch, out, dev):
     scores = svc.scores()
     if not np.isfinite(scores).all() or scores.shape != (args.batch,):
         raise AssertionError("main path: non-finite or misshapen scores")
-    if launches != args.ticks:
+    if launches != TICKS:
         raise AssertionError(f"stream_tick launched {launches} times in "
-                             f"{args.ticks} ticks")
+                             f"{TICKS} ticks")
     vals, ids = svc.top_anomalies(4)
     if sorted(ids.tolist()) != planted:
         raise AssertionError(f"top-4 {ids.tolist()} != planted {planted}")
@@ -353,7 +378,7 @@ def phase_serve(args, torch, out, dev):
         raise AssertionError(f"incremental vs batch jsdist_tilde differs "
                              f"by {worst:.3e} > 5e-3")
     med = float(np.median(tick_ms))
-    print(f"  {args.ticks} ticks: median tick {med:.3f} ms (CUDA events "
+    print(f"  {TICKS} ticks: median tick {med:.3f} ms (CUDA events "
           f"around poll, host-to-device copy included), median host "
           f"ingest+poll {np.median(wall_ms):.3f} ms, "
           f"{args.batch / med * 1e3:.4g} stream-ticks/s; stream_tick "
@@ -363,7 +388,61 @@ def phase_serve(args, torch, out, dev):
           f"vs batch jsdist_tilde: max |diff| {worst:.3e} (bound 5e-3)")
     out["launches"] = {"stream_tick": launches}
     out["snap"] = snap
+    traced_tick(torch, svc, fleet.tick())
     svc.close()
+
+
+def traced_tick(torch, svc, deltas):
+    """One more ingest → poll tick under `torch.profiler`: the device's
+    busy time (kernels, copies, fills; overlaps counted once) against
+    the tick's span on the host, from the exported trace."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        with record_function("chip_smoke_tick"):
+            svc.ingest(deltas)
+            svc.poll()
+            torch.cuda.synchronize()
+    path = Path(__file__).resolve().parent / "build" / "tick_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    span = [e for e in events if e.get("name") == "chip_smoke_tick"
+            and e.get("ph") == "X"]
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                  e["cat"], e["name"]) for e in events
+                 if e.get("ph") == "X" and e.get("cat") in
+                 ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not span or not dev:
+        print("  traced tick: the trace holds no device events; idle "
+              "share not measured")
+        return
+    t0 = float(span[0]["ts"])
+    t1 = t0 + float(span[0]["dur"])
+
+    def covered(intervals):
+        """Microseconds of [t0, t1] covered by sorted intervals."""
+        total, end = 0.0, t0
+        for a, b in intervals:
+            a, b = max(a, end), min(b, t1)
+            if b > a:
+                total += b - a
+                end = b
+        return total
+
+    busy = covered([(a, b) for a, b, _, _ in dev])
+    kern = covered([(a, b) for a, b, cat, _ in dev if cat == "kernel"])
+    by_cat = {}
+    for a, b, cat, name in dev:
+        key = "stream_tick kernel" if "stream_tick" in name else cat
+        by_cat[key] = by_cat.get(key, 0.0) + (b - a) / 1e3
+    parts = ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(by_cat.items()))
+    print(f"  traced tick (profiler on): span {(t1 - t0) / 1e3:.3f} ms; "
+          f"device busy {busy / 1e3:.3f} ms ({parts}); idle share "
+          f"{1 - busy / (t1 - t0):.4f} with copies counted as busy, "
+          f"{1 - kern / (t1 - t0):.4f} counting kernels only")
 
 
 def phase_single(args, torch, out, dev):
@@ -407,6 +486,8 @@ def phase_single(args, torch, out, dev):
 def kernel_rows(torch, out):
     """Times, bounds and errors of each kernel at the main path's
     shapes and inputs."""
+    import dataclasses
+
     from repro_torch.core.incremental import gate_delta_for_update
     from repro_torch.kernels.delta_stats import ops as ds_ops
     from repro_torch.kernels.delta_stats import parity as ds_parity
@@ -415,19 +496,46 @@ def kernel_rows(torch, out):
     from repro_torch.kernels.stream_tick import parity as st_parity
     from repro_torch.kernels.stream_tick.ref import stream_tick_ref
 
-    states, deltas = out["snap"]
+    # The main path's launch: in place (engine/stream.py), exact s_max,
+    # on a copy of the state of tick TICKS // 2, restored before each call.
+    snap, deltas = out["snap"]
+    work = snap.map_tensors(torch.clone)
+
+    def restore():
+        for f in ("q", "s_total", "s_max", "strengths", "node_mask"):
+            getattr(work, f).copy_(getattr(snap, f))
+
+    def tick(d):
+        return lambda: st_ops.stream_tick_fused(work, d, exact_smax=True,
+                                                inplace=True)
+
     errs = out["errs"]
-    err = st_parity.compare(
-        st_ops.stream_tick_fused(states, deltas, exact_smax=True),
-        stream_tick_ref(states, deltas, exact_smax=True), "main-path tick")
+    want = stream_tick_ref(snap, deltas, exact_smax=True)
+    got = tick(deltas)()
+    err = st_parity.compare(got, want, "main-path tick")
     errs["stream_tick"] = max(errs["stream_tick"], err)
-    ms = cuda_ms(lambda: st_ops.stream_tick_fused(states, deltas,
-                                                  exact_smax=True), 20)
-    plain = cuda_ms(lambda: stream_tick_ref(states, deltas,
-                                            exact_smax=True), 5)
-    b, n = states.strengths.shape
+    changed = int((work.strengths != snap.strengths).sum()) \
+        + int((work.node_mask != snap.node_mask).sum())
+    del got, want
+    ms = cuda_ms(tick(deltas), 20, setup=restore)
+    plain = cuda_ms(lambda: stream_tick_ref(snap, deltas, exact_smax=True),
+                    5)
+    b, n = snap.strengths.shape
     k, j = deltas.dw.shape[-1], deltas.node_ids.shape[-1]
-    bytes_tick = b * (4 * 3 + 8 * n + 20 * k + 8 * j) + b * (4 * 4 + 8 * n)
+    # read: 3 scalars, the strength and mask rows, the delta; written:
+    # dist, 3 scalars, and the state elements the delta changes
+    bytes_tick = b * (4 * 3 + 8 * n + 20 * k + 8 * j) + b * 4 * 4 \
+        + 4 * changed
+    masked = dataclasses.replace(deltas, mask=torch.zeros_like(deltas.mask))
+    first32 = dataclasses.replace(deltas, **{
+        f: getattr(deltas, f)[:, :32].contiguous()
+        for f in ("senders", "receivers", "dw", "w_old", "mask")})
+    ms_masked = cuda_ms(tick(masked), 10, setup=restore)
+    ms_k32 = cuda_ms(tick(first32), 10, setup=restore)
+    print(f"  stream_tick in place, B={b} n_pad={n} k_pad={k} j_pad={j}: "
+          f"{changed} state elements changed; every lane masked "
+          f"{ms_masked:.4f} ms; first 32 lanes only {ms_k32:.4f} ms")
+    del work, masked, first32
     rows = [{
         "name": "stream_tick", "route": "cuda",
         "source": "src/repro_torch/csrc/stream_tick.cu",
@@ -466,7 +574,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=32768)
-    ap.add_argument("--ticks", type=int, default=20)
     args = ap.parse_args()
 
     import torch

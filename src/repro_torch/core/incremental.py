@@ -96,11 +96,11 @@ def sorted_delta_endpoints(strengths: torch.Tensor, delta: GraphDelta):
 
 
 def delta_stats_from_sorted(sorted_nodes, sorted_vals, sorted_strengths,
-                            endpoint_valid, dw, w_old, mask):
+                            endpoint_valid, dwm, w_old):
     """Sorted-endpoint segment reduction → (..., 4) [ΔS, ΔQ, max s', |ΔV|].
 
-    The plain version of the `delta_stats` kernel. The max is -inf for
-    an all-masked delta.
+    The plain version of the `delta_stats` kernel; ``dwm`` is the masked
+    per-edge Δw. The max is -inf for an all-masked delta.
     """
     head = torch.ones_like(sorted_nodes, dtype=torch.bool)
     head[..., 1:] = sorted_nodes[..., 1:] != sorted_nodes[..., :-1]
@@ -111,7 +111,6 @@ def delta_stats_from_sorted(sorted_nodes, sorted_vals, sorted_strengths,
     node_term = torch.where(
         head, 2.0 * sorted_strengths * ds_here + ds_here * ds_here,
         0.0).sum(-1)
-    dwm = dw * mask
     edge_term = (4.0 * w_old * dwm + 2.0 * dwm * dwm).sum(-1)
     delta_s = 2.0 * dwm.sum(-1)
     max_new = torch.where(head, sorted_strengths + ds_here,
@@ -124,8 +123,8 @@ def delta_stats_from_sorted(sorted_nodes, sorted_vals, sorted_strengths,
 def delta_stats_compact(state: FingerState, delta: GraphDelta):
     """(ΔS, ΔQ, max_{ΔV}(s_i + Δs_i)) without a dense Δs."""
     prep = sorted_delta_endpoints(state.strengths, delta)
-    stats = delta_stats_from_sorted(*prep, delta.dw, delta.w_old,
-                                    delta.mask)
+    stats = delta_stats_from_sorted(*prep, delta.dw * delta.mask,
+                                    delta.w_old)
     return stats[..., 0], stats[..., 1], stats[..., 2]
 
 

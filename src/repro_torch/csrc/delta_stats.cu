@@ -11,7 +11,7 @@
 //
 // from the 2k endpoint ids sorted ascending (masked slots carry the
 // sentinel id n and sort last), their masked Δw, their gathered
-// strengths and validity, plus the k per-edge Δw / w_old / mask.
+// strengths and validity, plus the k per-edge masked Δw and w_old.
 // The max is -inf when every lane is masked.
 //
 // Design. The TPU kernel builds a (2k, 2k) same-node matrix and
@@ -25,7 +25,7 @@
 // One block of 512 threads per row; the scalar sums use the fixed-order
 // block reduction of common.cuh, so results repeat bit for bit.
 //
-// What bounds it on the H100: a single stream moves 2k·16 + k·12 bytes
+// What bounds it on the H100: a single stream moves 2k·16 + k·8 bytes
 // and does O(2k) flops, so one launch is latency-bound (a few µs);
 // the batched serving path uses stream_tick.cu instead.
 #include "common.cuh"
@@ -41,7 +41,6 @@ delta_stats_sorted_kernel(const int* __restrict__ sorted_nodes,
                           const float* __restrict__ endpoint_valid,
                           const float* __restrict__ dw,
                           const float* __restrict__ w_old,
-                          const float* __restrict__ mask,
                           float* __restrict__ out, int two_k, int k) {
   __shared__ float scratch[32];
   const long long row = blockIdx.x;
@@ -64,7 +63,7 @@ delta_stats_sorted_kernel(const int* __restrict__ sorted_nodes,
   }
   float edge = 0.f, dsum = 0.f;
   for (int e = threadIdx.x; e < k; e += blockDim.x) {
-    const float d = dw[row * k + e] * mask[row * k + e];
+    const float d = dw[row * k + e];
     edge += 4.f * w_old[row * k + e] * d + 2.f * d * d;
     dsum += d;
   }
@@ -88,12 +87,12 @@ delta_stats_sorted_kernel(const int* __restrict__ sorted_nodes,
 REPRO_EXPORT int delta_stats_sorted_launch(
     const int* sorted_nodes, const float* sorted_vals,
     const float* sorted_strengths, const float* endpoint_valid,
-    const float* dw, const float* w_old, const float* mask, float* out,
-    int rows, int two_k, int k, void* stream) {
+    const float* dw, const float* w_old, float* out, int rows, int two_k,
+    int k, void* stream) {
   if (rows <= 0) return 0;
   delta_stats_sorted_kernel<<<rows, kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       sorted_nodes, sorted_vals, sorted_strengths, endpoint_valid, dw,
-      w_old, mask, out, two_k, k);
+      w_old, out, two_k, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,34 +25,42 @@
 //   - the valid endpoints are sorted by (node id, endpoint index) with a
 //     bitonic sort in shared memory; a segment head is the first entry of
 //     its id, and its thread sums the segment's Δw in endpoint order:
-//     deterministic, no atomics on values. (A first version found heads
-//     by scanning all earlier endpoints, O(k²) per stream: 12 ms a tick at
-//     B = 32768, k = 128 on the H100, slower than the plain version; see
-//     PERF.md.)
+//     deterministic, no atomics on values. (Finding heads by scanning
+//     all earlier endpoints instead costs O(k²) dependent shared-memory
+//     loads per stream and is slower than the plain version; PERF.md.)
 //   - the heads go into a small open-addressing table in shared memory
 //     (node id → head), sized by 2k and never by n;
 //   - the scalars are reduced in a fixed order (common.cuh), and every
 //     thread then evaluates the Theorem-2 updates from the same totals;
 //   - the (n,) strength and mask rows are streamed once: each element is
-//     read, looked up in the head table, and written with its final value
+//     read, looked up in the head table, and given its final value
 //     (str + Δs)·mask_after, or 0 on an empty snap; the exact s_max of
-//     both updates is reduced over the written values in the same pass.
+//     both updates is reduced over the final values in the same pass.
 //
 // The row is never staged in shared memory, so n has no shared-memory
-// ceiling; shared memory grows with k only (see `stream_tick_smem_bytes`
-// in ops.py, which raises by name past the card's 227 KB per block).
+// ceiling; shared memory grows with k and j only. `TickLayout` below is
+// the one home of the shared-memory layout: the kernel carves its
+// arrays from it, and the launcher sizes the launch from it and refuses
+// (cudaErrorInvalidValue) a layout above the card's per-block opt-in
+// limit, which `stream_tick_smem_bytes` / `stream_tick_smem_limit` let
+// the wrapper check by name first.
 //
 // In place. The wrapper may pass the output rows as the input rows (the
 // PyTorch counterpart of JAX's donation). Every gather from the input
 // rows completes before the first write (the barriers after steps 2 and
 // 3), and in step 6 each thread reads an element before it writes the
 // same element; the scalars are read by every thread before the block's
-// last barrier and written by thread 0 after it.
+// last barrier and written by thread 0 after it. In place, step 6 writes
+// only the elements whose value changes (the touched nodes, the join and
+// leave slots, or the whole row on an empty snap); out of place it
+// writes every element.
 //
 // What bounds it on the H100: device memory. Per stream the tick must
-// read and write the (n,) strength and mask rows (16·n bytes) and read
-// the delta (k·20 + j·8 bytes); the arithmetic is O(k log² k + n·j)
-// compares and O(k + n) flops, far below the card's compute peak.
+// read the (n,) strength and mask rows (8·n bytes) and the delta
+// (k·20 + j·8 bytes), and write the rows (8·n bytes) out of place or
+// only their changed elements in place; the arithmetic is
+// O(k log² k + n·j) compares and O(k + n) flops, far below the card's
+// compute peak.
 #include "common.cuh"
 
 namespace {
@@ -97,6 +105,23 @@ __device__ __forceinline__ Update theorem2(float q0, float s0, float c0,
   return {empty ? 1.f : q_new, empty ? 0.f : s_raw, empty};
 }
 
+// Shared memory of one block: the 8-byte sort keys first, then 4-byte
+// words — six (2k,) endpoint arrays, two (j,) node-slot arrays, the
+// two-array head table and a 32-float reduction scratch.
+struct TickLayout {
+  int two_k, j, sort_n, table_size;
+
+  __host__ __device__ TickLayout(int k, int j_)
+      : two_k(2 * k), j(j_), sort_n(2), table_size(32) {
+    while (sort_n < two_k) sort_n <<= 1;          // bitonic sort length
+    while (table_size < 2 * two_k) table_size <<= 1;  // load factor <= 1/2
+  }
+
+  __host__ __device__ long long bytes() const {
+    return 8ll * sort_n + 4ll * (6 * two_k + 2 * j + 2 * table_size + 32);
+  }
+};
+
 __global__ void __launch_bounds__(kThreads)
 stream_tick_kernel(const float* q, const float* s_total, const float* s_max,
                    const float* strengths, const float* node_mask,
@@ -109,17 +134,15 @@ stream_tick_kernel(const float* q, const float* s_total, const float* s_max,
                    const float* __restrict__ nflag,
                    float* dist, float* q_out, float* s_out, float* smax_out,
                    float* str_out, float* mask_out, int n, int k, int j,
-                   int table_size, int exact_smax) {
+                   int exact_smax) {
   extern __shared__ unsigned long long smem[];
-  const int two_k = 2 * k;
-  const int hmask = table_size - 1;
-  int sort_n = 2;
-  while (sort_n < two_k) sort_n <<= 1;
+  const TickLayout lay(k, j);
+  const int two_k = lay.two_k, sort_n = lay.sort_n;
+  const int table_size = lay.table_size, hmask = table_size - 1;
+  const bool in_place = str_out == strengths;
   const long long row = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
 
-  // Shared layout (ops.stream_tick_smem_bytes mirrors it): the 8-byte
-  // sort keys first, then 4-byte words.
   unsigned long long* s_sort = smem;          // [N]  sort keys, N = sort_n
   int* s_id = reinterpret_cast<int*>(s_sort + sort_n);  // [2k] endpoint ids
   int* s_nid = s_id + two_k;                  // [j]  node-slot ids
@@ -272,8 +295,8 @@ stream_tick_kernel(const float* q, const float* s_total, const float* s_max,
     const float v_half = upd_half.empty ? 0.f : (s + 0.5f * ds) * m_joined;
     rmax_f = fmaxf(rmax_f, v_full);
     rmax_h = fmaxf(rmax_h, v_half);
-    str_out[row * n + i] = v_full;
-    mask_out[row * n + i] = m_after;
+    if (!in_place || v_full != s) str_out[row * n + i] = v_full;
+    if (!in_place || m_after != m) mask_out[row * n + i] = m_after;
   }
 
   float smax_f, smax_h;
@@ -300,27 +323,51 @@ stream_tick_kernel(const float* q, const float* s_total, const float* s_max,
 
 }  // namespace
 
+// Dynamic shared memory one block needs for k edge lanes and j node
+// slots (the layout above).
+REPRO_EXPORT long long stream_tick_smem_bytes(int k, int j) {
+  return TickLayout(k, j).bytes();
+}
+
+// The card's per-block shared-memory limit (with the opt-in above 48 KB),
+// or -1 with the CUDA error left for cudaGetLastError.
+REPRO_EXPORT long long stream_tick_smem_limit(int device) {
+  int limit = 0;
+  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return -1;
+  return limit;
+}
+
 // Launch one block per stream row on `stream`; returns the launch's
-// cudaError_t (0 on success). `smem_bytes` must match the layout above.
+// cudaError_t (0 on success), cudaErrorInvalidValue when the layout for
+// (k, j) exceeds the card's shared memory per block.
 REPRO_EXPORT int stream_tick_launch(
     const float* q, const float* s_total, const float* s_max,
     const float* strengths, const float* node_mask, const int* senders,
     const int* receivers, const float* dw, const float* w_old,
     const float* emask, const int* nid, const float* nflag, float* dist,
     float* q_out, float* s_out, float* smax_out, float* str_out,
-    float* mask_out, int rows, int n, int k, int j, int table_size,
-    int exact_smax, int smem_bytes, void* stream) {
+    float* mask_out, int rows, int n, int k, int j, int exact_smax,
+    void* stream) {
   if (rows <= 0) return 0;
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        stream_tick_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
+  const long long smem = TickLayout(k, j).bytes();
+  if (smem > 48 * 1024) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long limit = stream_tick_smem_limit(device);
+    if (limit < 0) return static_cast<int>(cudaGetLastError());
+    if (smem > limit) return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaFuncSetAttribute(stream_tick_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  stream_tick_kernel<<<rows, kThreads, smem_bytes,
+  stream_tick_kernel<<<rows, kThreads, static_cast<size_t>(smem),
                        static_cast<cudaStream_t>(stream)>>>(
       q, s_total, s_max, strengths, node_mask, senders, receivers, dw, w_old,
       emask, nid, nflag, dist, q_out, s_out, smax_out, str_out, mask_out, n, k,
-      j, table_size, exact_smax);
+      j, exact_smax);
   return static_cast<int>(cudaGetLastError());
 }

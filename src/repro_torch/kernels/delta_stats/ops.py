@@ -37,15 +37,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def prepare_sorted_delta(strengths: torch.Tensor, delta: GraphDelta):
-    """GraphDelta → the kernel's seven inputs: sorted ids, sorted Δw,
-    sorted strengths, endpoint validity, masked Δw, w_old, mask."""
+    """GraphDelta → the kernel's six inputs: sorted ids, sorted Δw,
+    sorted strengths, endpoint validity, masked Δw, w_old."""
     prep = sorted_delta_endpoints(strengths, delta)
-    return (*prep, delta.dw * delta.mask, delta.w_old, delta.mask)
+    return (*prep, delta.dw * delta.mask, delta.w_old)
 
 
 def delta_stats_sorted_cuda(sorted_nodes, sorted_vals, sorted_strengths,
-                            endpoint_valid, dw, w_old,
-                            mask) -> torch.Tensor:
+                            endpoint_valid, dw, w_old) -> torch.Tensor:
     """Launch the CUDA kernel on the sorted-endpoint form → (..., 4)."""
     global LAUNCHES
     two_k = sorted_nodes.shape[-1]
@@ -54,8 +53,7 @@ def delta_stats_sorted_cuda(sorted_nodes, sorted_vals, sorted_strengths,
     if two_k != 2 * k:
         raise ValueError(f"delta_stats: {two_k} endpoints for {k} edges")
     ints = [sorted_nodes]
-    floats = [sorted_vals, sorted_strengths, endpoint_valid, dw, w_old,
-              mask]
+    floats = [sorted_vals, sorted_strengths, endpoint_valid, dw, w_old]
     dev = sorted_nodes.device
     if dev.type != "cuda":
         raise ValueError(f"delta_stats kernel needs CUDA tensors, got {dev}")
@@ -70,7 +68,7 @@ def delta_stats_sorted_cuda(sorted_nodes, sorted_vals, sorted_strengths,
     rows = int(torch.Size(lead).numel())
     out = torch.empty((*lead, 4), dtype=torch.float32, device=dev)
     fn = dispatch.library()["delta_stats"].delta_stats_sorted_launch
-    fn.argtypes = [_P] * 8 + [_I] * 3 + [_P]
+    fn.argtypes = [_P] * 7 + [_I] * 3 + [_P]
     fn.restype = _I
     err = fn(*(t.data_ptr() for t in args), out.data_ptr(), rows, two_k,
              k, dispatch.stream_handle(dev))

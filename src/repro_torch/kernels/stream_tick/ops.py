@@ -17,8 +17,8 @@ padded to 128 lanes or 256 endpoints, and the per-edge payloads are not
 tiled onto endpoints: those were TPU layout rules. ``inplace=True``
 writes the new state into the given state's tensors (the PyTorch
 counterpart of JAX's donation; the kernel completes every gather from
-a row before its first write to it) and returns a state over the same
-tensors.
+a row before its first write to it, and writes only the elements whose
+value changes) and returns a state over the same tensors.
 
 ``LAUNCHES`` counts kernel launches (never plain-version calls).
 """
@@ -36,38 +36,32 @@ from repro_torch.kernels.stream_tick.ref import stream_tick_ref
 
 LAUNCHES = 0
 
-# Shared memory a block may use on the H100 (227 KB, opt-in above 48 KB).
-MAX_SMEM_BYTES = 232448
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _STATE_FIELDS = ("q", "s_total", "s_max", "strengths", "node_mask")
 
 
-def head_table_size(k: int) -> int:
-    """Slots of the kernel's node-id → segment-head table: a power of
-    two at least twice the 2k endpoints (load factor ≤ ½)."""
-    size = 32
-    while size < 4 * k:
-        size *= 2
-    return size
-
-
-def sort_size(k: int) -> int:
-    """Length of the kernel's bitonic sort: a power of two, at least 2
-    and at least the 2k endpoints."""
-    size = 2
-    while size < 2 * k:
-        size *= 2
-    return size
+def _lib() -> ctypes.CDLL:
+    return dispatch.library()["stream_tick"]
 
 
 def stream_tick_smem_bytes(k: int, j: int) -> int:
-    """Dynamic shared memory of one block, mirroring the kernel's
-    layout: the 8-byte sort keys, six (2k,) endpoint arrays, two (j,)
-    node-slot arrays, the two-array head table and a 32-float reduction
-    scratch."""
-    return 8 * sort_size(k) \
-        + 4 * (6 * 2 * k + 2 * j + 2 * head_table_size(k) + 32)
+    """Dynamic shared memory one block needs for k edge lanes and j node
+    slots, as the kernel's own layout (`TickLayout`) computes it."""
+    fn = _lib().stream_tick_smem_bytes
+    fn.argtypes, fn.restype = [_I, _I], _LL
+    return int(fn(k, j))
+
+
+def stream_tick_smem_limit(device: torch.device) -> int:
+    """The card's shared memory per block, with the opt-in above 48 KB."""
+    fn = _lib().stream_tick_smem_limit
+    fn.argtypes, fn.restype = [_I], _LL
+    limit = int(fn(device.index if device.index is not None
+                   else torch.cuda.current_device()))
+    if limit < 0:
+        raise dispatch.KernelLaunchError(
+            "stream_tick: could not read the card's shared memory limit")
+    return limit
 
 
 def _check_layout(name: str, states: FingerState, deltas: GraphDelta):
@@ -128,22 +122,21 @@ def _launch(states: FingerState, deltas: GraphDelta, exact_smax: bool,
               or deltas.node_flag.dtype != torch.float32):
         raise TypeError("stream_tick: node slots must be int32 ids and "
                         "float32 flags")
-    smem = stream_tick_smem_bytes(k, j)
-    if smem > MAX_SMEM_BYTES:
+    smem, limit = stream_tick_smem_bytes(k, j), stream_tick_smem_limit(dev)
+    if smem > limit:
         raise ValueError(
             f"stream_tick: k_pad={k}, j_pad={j} need {smem} bytes of "
-            f"shared memory per block, above the card's {MAX_SMEM_BYTES}")
+            f"shared memory per block, above the card's {limit}")
     outs = st if inplace else [torch.empty_like(t) for t in st]
     dist = torch.empty(lead, dtype=torch.float32, device=dev)
-    fn = dispatch.library()["stream_tick"].stream_tick_launch
-    fn.argtypes = [_P] * 18 + [_I] * 7 + [_P]
+    fn = _lib().stream_tick_launch
+    fn.argtypes = [_P] * 18 + [_I] * 5 + [_P]
     fn.restype = _I
     nid, nflag = (None, None) if j == 0 else (slots[0].data_ptr(),
                                                 slots[1].data_ptr())
     err = fn(*(t.data_ptr() for t in st + dl), nid, nflag,
              dist.data_ptr(), *(t.data_ptr() for t in outs), rows, n, k, j,
-             head_table_size(k), int(bool(exact_smax)), smem,
-             dispatch.stream_handle(dev))
+             int(bool(exact_smax)), dispatch.stream_handle(dev))
     dispatch.check_launch("stream_tick", err)
     LAUNCHES += 1
     if inplace:
