@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed S] [--batch B]
 
 Run from the root of a checkout; it imports `repro_torch` from
-``src/`` and never JAX or the JAX package. Four phases, each printing a
+``src/`` and never JAX or the JAX package. Five phases, each printing a
 line of its own; any failure exits non-zero:
 
 1. build   — the hand-written kernels from ``src/repro_torch/csrc/``,
@@ -14,8 +14,14 @@ line of its own; any failure exits non-zero:
              (n_pad not a multiple of 128, odd k, 3 join slots) over
              the edge-case batch of `kernels/stream_tick/parity.py`,
              both ``exact_smax`` values, out of place and in place;
-             ``stream_tick_fused_stacked``
-             at S = 3; ``delta_stats`` at several k and all-masked.
+             ``stream_tick_fused_stacked`` at S = 3; ``delta_stats`` at
+             several k and all-masked; ``sparse_tick`` on the two-tick
+             cases of `kernels/sparse_tick/parity.py` (an emptying then
+             a reviving tick, allocating and freeing lanes, sentinel and
+             out-of-range slots, all-masked rows) at the sparse serving
+             size and at a ragged size (n_slots, m_pad not multiples of
+             32), both ``exact_smax`` values, out of place and in place,
+             and ``sparse_tick_fused_stacked`` at S = 2.
 3. serve   — the main path: `FingerService.open(ServiceConfig(
              method="fused_tick", placement="local", ingestion="sync",
              exact_smax=True, batch_size=32768, n_pad=1024, k_pad=128,
@@ -33,22 +39,43 @@ line of its own; any failure exits non-zero:
              ``torch.profiler`` for the device's busy and idle share.
 4. single  — `jsdist_stream(method="fused_tick")` on one stream for 20
              deltas against the plain method; ``delta_stats`` launched.
+5. sparse  — the sparse path: `FingerService.open(ServiceConfig(
+             method="sparse_tick", placement="local", ingestion="sync",
+             exact_smax=True, batch_size=4096, n_pad=2**20,
+             n_slots=1024, m_pad=8192, k_pad=128, j_pad=8), graphs)`
+             over virtual-space `EdgeList`s made one at a time (256–1024
+             active nodes a stream at ids spread over [0, 2²⁰), about 4n
+             edges), then 20 ticks of per-stream virtual deltas (the
+             phase-3 mix: re-weights, new edges, deletions to 0, joins of
+             fresh ids, leaves of isolated nodes; the burst in 4 streams
+             on the last tick), with a ``grow_capacity`` while a tick is
+             queued (tick 12) and a virtual ``repad`` to 2²¹ (tick 14).
+             Checks: ``sparse_tick`` launched once per tick; the planted
+             streams are the top 4; 64 sampled scores match the batch
+             `jsdist_tilde` of their relabelled mirrored graphs within
+             5e-3 after the growth, after the repad and at the end; the
+             sampled streams' edge stores equal the mirror's weights at
+             their `SlotMap` slots and 0 elsewhere.
 
-Launch counts are set to 0 just before phase 3 and phase 4 and read just
-after each. Kernel times are CUDA-event means of the launch the main
-path makes (``stream_tick`` in place, on a copy of a main-path tick's
-state restored before every call), at its shapes and inputs; bounds come
-from the bytes that launch must move at the H100's 3.35 TB/s (the
+Launch counts are set to 0 just before phases 3, 4 and 5 and read just
+after each. Kernel times are CUDA-event means of the launch each path
+makes, at its shapes and inputs: ``stream_tick`` in place on a copy of a
+main-path tick's state restored before every call, ``sparse_tick`` in
+place (and out of place) on a copy of a sparse-path tick's state and
+slot-space delta, ``delta_stats`` on a single-stream update. Bounds
+come from the bytes each launch must move at the H100's 3.35 TB/s (the
 arithmetic bound is far below), counting only the state elements this
-run's delta changes as written. The ``stream_tick`` fixed cost is also
-timed with every edge lane masked and with the first 32 lanes only. The
-line before the last is the ``kernels`` JSON object; the last line is
-the device JSON object. Scores and state are compared at the tolerances stated in
-the parity modules (atol 1e-5, rtol 1e-5; the score as a divergence).
+run's delta changes, and the edge-store slots its gated lanes write, as
+written. The ``stream_tick`` fixed cost is also timed with every edge
+lane masked and with the first 32 lanes only. The line before the last
+is the ``kernels`` JSON object; the last line is the device JSON
+object. Scores and state are compared at the tolerances stated in the
+parity modules (atol 1e-5, rtol 1e-5; the score as a divergence).
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -60,6 +87,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 N_PAD, K_PAD, J_PAD = 1024, 128, 8
 TICKS = 20
 PRIME_STRIDE = 8209  # a prime above every candidate count 8·n_e ≤ 8160
+# the sparse path: B streams in a 2^20-id virtual space, sized by slots
+N_VIRTUAL, SP_BATCH, SP_SLOTS, SP_M_PAD = 1 << 20, 4096, 1024, 8192
+GROW_T, REPAD_T = 12, 14  # ticks of the capacity growth and the repad
+SP_FIELDS = ("q", "s_total", "s_max", "strengths", "node_mask",
+             "edge_weights")
 
 
 def cuda_ms(fn, reps: int, setup=None) -> float:
@@ -196,12 +228,10 @@ class Fleet:
         dw[:k] = np.r_[-w[gone], 1.5 * s[tops[0]] / len(grow) - w[grow]]
         return slots, dw, np.arange(K_PAD) < k
 
-    def tick(self, burst_rows=()):
-        """One tick's stacked (B, K_PAD) delta; the mirror follows it."""
-        import torch
-
-        from repro_torch.graphs.types import GraphDelta
-
+    def tick_arrays(self, burst_rows=()):
+        """One tick's (B, K_PAD) lanes and (B, J_PAD) node slots in local
+        ids, as numpy arrays (lo, hi, dw, w_old, lane mask, node ids,
+        node flags); the mirror follows the tick."""
         np, rng, b = self.np, self.rng, self.b
         ar = np.arange(b)
         nid = np.zeros((b, J_PAD), np.int32)
@@ -243,28 +273,127 @@ class Fleet:
         rows, lanes = np.nonzero(gate)
         self.w[rows, c[rows, lanes]] = (w_cur + dw)[rows, lanes]
         self.active[ar[toggle], vb[toggle]] = ~was[toggle]
+        return lo, hi, dw, w_old, emask, nid, nflag
 
-        def t(x, dtype):
-            return torch.from_numpy(np.ascontiguousarray(x).astype(dtype))
+    def tick(self, burst_rows=()):
+        """One tick's stacked (B, K_PAD) delta; the mirror follows it."""
+        from repro_torch.graphs.types import GraphDelta
 
+        lo, hi, dw, w_old, emask, nid, nflag = self.tick_arrays(burst_rows)
+        t = host_tensor
         return GraphDelta(
-            senders=t(lo, np.int32), receivers=t(hi, np.int32),
-            dw=t(dw, np.float32), w_old=t(w_old, np.float32),
-            mask=t(emask, np.float32), n_nodes=N_PAD,
-            node_ids=t(nid, np.int32), node_flag=t(nflag, np.float32))
+            senders=t(lo, "int32"), receivers=t(hi, "int32"),
+            dw=t(dw, "float32"), w_old=t(w_old, "float32"),
+            mask=t(emask, "float32"), n_nodes=N_PAD,
+            node_ids=t(nid, "int32"), node_flag=t(nflag, "float32"))
+
+
+def host_tensor(x, dtype: str):
+    """A contiguous CPU tensor of ``dtype`` from a numpy array."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(x).astype(dtype))
+
+
+class SparseFleet(Fleet):
+    """The dense `Fleet`'s streams spread over a 2²⁰-id virtual space.
+
+    Local id i of stream b is the virtual id ``vid[b, i]``: N_PAD
+    distinct ids drawn at random from [0, N_VIRTUAL) for each stream,
+    in random order. The mirror, the candidate edges and the tick lanes
+    stay in local ids, a relabelling of the virtual graph;
+    `virtual_deltas` maps each tick to the per-stream virtual deltas a
+    producer sends. Lanes that would add an edge of weight 0 are masked,
+    as a producer would not send them.
+    """
+
+    def __init__(self, b: int, seed: int):
+        super().__init__(b, seed)
+        self.vid = self.np.stack([
+            self.rng.choice(N_VIRTUAL, N_PAD, replace=False)
+            for _ in range(b)]).astype(self.np.int64)
+
+    def graphs(self, seconds):
+        """The initial graphs, one at a time, as virtual-space `EdgeList`s
+        (n_nodes = N_VIRTUAL with an (N_VIRTUAL,) node mask); the time
+        spent making them is added to ``seconds[0]``."""
+        import torch
+
+        from repro_torch.graphs.types import EdgeList
+
+        np = self.np
+        for b in range(self.b):
+            t0 = time.perf_counter()
+            nz = np.flatnonzero(self.w[b])
+            lo, hi = self.endpoints(nz[None, :], slice(b, b + 1))
+            v = self.vid[b]
+            mask = np.zeros(N_VIRTUAL, np.float32)
+            mask[v[np.flatnonzero(self.active[b])]] = 1.0
+            g = EdgeList.from_arrays(v[lo[0]], v[hi[0]], self.w[b, nz],
+                                     n_nodes=N_VIRTUAL,
+                                     node_mask=torch.from_numpy(mask))
+            seconds[0] += time.perf_counter() - t0
+            yield g
+
+    def virtual_deltas(self, n_virtual: int, burst_rows=()):
+        """One tick as B per-stream virtual `GraphDelta`s addressed in
+        an n_virtual space; the mirror follows the tick."""
+        from repro_torch.graphs.types import GraphDelta
+
+        np = self.np
+        lo, hi, dw, w_old, emask, nid, nflag = self.tick_arrays(burst_rows)
+        emask = emask & ~((dw == 0) & (w_old == 0))
+        take = np.take_along_axis
+        snd = np.where(emask, take(self.vid, lo, axis=1), 0)
+        rcv = np.where(emask, take(self.vid, hi, axis=1), 0)
+        nid = np.where(nflag != 0, take(self.vid, nid, axis=1), 0)
+        t = host_tensor
+        f = dict(senders=t(snd, "int32"), receivers=t(rcv, "int32"),
+                 dw=t(np.where(emask, dw, 0.0), "float32"),
+                 w_old=t(np.where(emask, w_old, 0.0), "float32"),
+                 mask=t(emask, "float32"), node_ids=t(nid, "int32"),
+                 node_flag=t(nflag, "float32"))
+        return [GraphDelta(n_nodes=n_virtual,
+                           **{k: v[b] for k, v in f.items()})
+                for b in range(self.b)]
+
+    def store_matches(self, b: int, slot_map, store) -> bool:
+        """Whether stream b's (m_pad,) edge store holds exactly the
+        mirror's live edge weights at their `SlotMap` slots and 0 in
+        every other slot, and the map holds no other edge."""
+        np = self.np
+        n_e = int(self.n_e[b])
+        c = np.arange(8 * n_e)
+        lo, hi = self.endpoints(c[None, :], slice(b, b + 1))
+        v = self.vid[b]
+        a, z = v[lo[0]], v[hi[0]]
+        live = self.w[b, c] > 0
+        keys = zip(np.minimum(a, z)[live].tolist(),
+                   np.maximum(a, z)[live].tolist())
+        slots = [slot_map.edge_slot.get(key, -1) for key in keys]
+        if len(slot_map.edge_slot) != len(slots) or -1 in slots:
+            return False
+        want = np.zeros_like(store)
+        want[slots] = self.w[b, c[live]]
+        return bool(np.array_equal(store, want))
 
 
 def phase_kernels(args, torch, out, dev):
     """Phase 2: each kernel against its plain version on the card."""
+    from repro_torch.core.sparse import stack_sparse_states
     from repro_torch.engine.stream import stack_deltas, stack_states
     from repro_torch.kernels.delta_stats import ops as ds_ops
     from repro_torch.kernels.delta_stats import parity as ds_parity
     from repro_torch.kernels.delta_stats.ref import delta_stats_sorted_ref
+    from repro_torch.kernels.sparse_tick import ops as sp_ops
+    from repro_torch.kernels.sparse_tick import parity as sp_parity
     from repro_torch.kernels.stream_tick import ops as st_ops
     from repro_torch.kernels.stream_tick import parity as st_parity
     from repro_torch.kernels.stream_tick.ref import stream_tick_ref
 
-    errs = {"stream_tick": 0.0, "delta_stats": 0.0}
+    errs = {"stream_tick": 0.0, "delta_stats": 0.0, "sparse_tick": 0.0,
+            "sparse_tick_stacked": 0.0}
     for shape in ((args.batch, N_PAD, K_PAD, J_PAD), (1000, 333, 37, 3)):
         states, deltas = st_parity.make_case(*shape, seed=args.seed,
                                              device=dev)
@@ -302,6 +431,42 @@ def phase_kernels(args, torch, out, dev):
         errs["delta_stats"] = max(errs["delta_stats"], err)
         print(f"  delta_stats k={k} all_masked={masked}: "
               f"max_abs_err={err:.3e}")
+
+    def sparse(inplace, stacked=False):
+        fn = sp_ops.sparse_tick_fused_stacked if stacked \
+            else sp_ops.sparse_tick_fused
+        return lambda s, d, e: fn(s, d, exact_smax=e, inplace=inplace)
+
+    # two ticks per case: row 0 empties on the first and revives on the
+    # second, each tick compared before the next
+    for shape in ((SP_BATCH, SP_SLOTS, SP_M_PAD, K_PAD, J_PAD),
+                  (1000, 333, 777, 37, 3)):
+        states, d1, d2 = sp_parity.make_case(*shape, seed=args.seed,
+                                             device=dev)
+        for exact in (False, True):
+            for inplace in (False, True):
+                case = (states.map_tensors(torch.clone), d1, d2)
+                err = sp_parity.check(sparse(inplace), case, exact,
+                                      f"sparse_tick {shape}")
+                errs["sparse_tick"] = max(errs["sparse_tick"], err)
+                print(f"  sparse_tick B,n_slots,m_pad,k,j={shape} "
+                      f"exact_smax={exact} inplace={inplace}, 2 ticks: "
+                      f"max_abs_err={err:.3e}")
+                del case
+        del states, d1, d2
+    cases = [sp_parity.make_case(SP_BATCH // 2, SP_SLOTS, SP_M_PAD, K_PAD,
+                                 J_PAD, seed=args.seed + s, device=dev)
+             for s in range(2)]
+    states = stack_sparse_states([c[0] for c in cases])
+    d1, d2 = (stack_deltas([c[i] for c in cases]) for i in (1, 2))
+    for inplace in (False, True):
+        case = (states.map_tensors(torch.clone), d1, d2)
+        err = sp_parity.check(sparse(inplace, stacked=True), case, True,
+                              "sparse_tick_stacked")
+        errs["sparse_tick_stacked"] = max(errs["sparse_tick_stacked"], err)
+        print(f"  sparse_tick_fused_stacked S=2 B={SP_BATCH // 2} "
+              f"inplace={inplace}, 2 ticks: max_abs_err={err:.3e}")
+    out["sparse_stacked"] = (states, d1)
     out["errs"] = errs
 
 
@@ -483,6 +648,255 @@ def phase_single(args, torch, out, dev):
     out["single"] = (state, deltas.map_tensors(lambda x: x[0]))
 
 
+def phase_sparse(args, torch, out, dev):
+    """Phase 5: the sparse path through FingerService (sparse_tick)."""
+    import numpy as np
+
+    from repro_torch.core.jsdist import jsdist_tilde
+    from repro_torch.kernels.sparse_tick import ops as sp_ops
+    from repro_torch.serving import FingerService, ServiceConfig, TopKSpec
+
+    t0 = time.perf_counter()
+    fleet = SparseFleet(SP_BATCH, args.seed + 3)
+    t1 = time.perf_counter()
+    cfg = ServiceConfig(method="sparse_tick", placement="local",
+                        ingestion="sync", exact_smax=True,
+                        batch_size=SP_BATCH, n_pad=N_VIRTUAL,
+                        n_slots=SP_SLOTS, m_pad=SP_M_PAD, k_pad=K_PAD,
+                        j_pad=J_PAD, topk=TopKSpec(k=4))
+    graph_s = [0.0]
+    svc = FingerService.open(cfg, fleet.graphs(graph_s), device=dev)
+    torch.cuda.synchronize()
+    t_open = time.perf_counter() - t1
+    n_active = float(svc.states().node_mask.sum(-1).mean())
+    edges = np.mean([len(m.edge_slot) for m in svc.slot_maps])
+    print(f"  opened B={SP_BATCH} n_pad={N_VIRTUAL} n_slots={SP_SLOTS} "
+          f"m_pad={SP_M_PAD} k_pad={K_PAD} j_pad={J_PAD}: mirrors "
+          f"{t1 - t0:.1f} s; open {t_open:.1f} s = graphs "
+          f"{graph_s[0]:.1f} s + build {t_open - graph_s[0]:.1f} s; mean "
+          f"active nodes {n_active:.0f}, mean edges {edges:.0f}")
+    rng = np.random.default_rng(args.seed + 4)
+    planted = sorted(rng.choice(SP_BATCH, 4, replace=False).tolist())
+    sampled = sorted(set(rng.choice(SP_BATCH, 60, replace=False).tolist())
+                     | set(planted))
+
+    def worst_score_diff(before):
+        """Largest |score − batch jsdist_tilde| over the sampled streams,
+        on relabelled graphs in the local N_PAD layout."""
+        scores = svc.scores()
+        worst = 0.0
+        for r, b in enumerate(sampled):
+            g0 = fleet.graph_at(b, before[0][r], before[1][r], dev)
+            g1 = fleet.graph_at(b, fleet.w[b], fleet.active[b], dev)
+            worst = max(worst, abs(float(jsdist_tilde(g0, g1))
+                                   - float(scores[b])))
+        if not np.isfinite(scores).all() or worst > 5e-3:
+            raise AssertionError(f"sparse path: sampled scores differ "
+                                 f"from batch jsdist_tilde by {worst:.3e}")
+        return worst
+
+    captured, marks = {}, []
+
+    def capture(plan_tick):
+        def tick(states, deltas):
+            captured["snap"] = (states.map_tensors(torch.clone), deltas)
+            return plan_tick(states, deltas)
+        return tick
+
+    def mark(plan_tick):
+        """Record when the plan's tick starts: after the ingestor's copy
+        of the delta to the device, before the kernel's launch."""
+        def tick(states, deltas):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((ev, time.perf_counter()))
+            return plan_tick(states, deltas)
+        return tick
+
+    n_virtual, worst = N_VIRTUAL, {}
+    tick_ms, ingest_ms, poll_ms, split = [], [], [], []
+    gc_s, where, gc_t0 = {"poll": 0.0, "ingest": 0.0, "": 0.0}, [""], [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_s[where[0]] += time.perf_counter() - gc_t0[0]
+
+    gc.callbacks.append(on_gc)
+    sp_ops.LAUNCHES = 0
+    for t in range(TICKS):
+        last = t == TICKS - 1
+        before = (fleet.w[sampled].copy(), fleet.active[sampled].copy())
+        if t == REPAD_T:
+            svc.repad(2 * N_VIRTUAL)
+            n_virtual = 2 * N_VIRTUAL
+        deltas = fleet.virtual_deltas(n_virtual, planted if last else ())
+        h0 = time.perf_counter()
+        where[0] = "ingest"
+        svc.ingest(deltas)
+        where[0] = ""
+        ingest_ms.append((time.perf_counter() - h0) * 1e3)
+        if t == GROW_T:  # grow with this tick queued
+            svc.grow_capacity(n_slots=SP_SLOTS + 64, m_pad=SP_M_PAD + 512)
+        svc.plan.tick = mark(svc.plan.tick)
+        if t == TICKS // 2:
+            svc.plan.tick = capture(svc.plan.tick)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        p0 = time.perf_counter()
+        where[0] = "poll"
+        ev0.record()
+        svc.poll()
+        ev1.record()
+        ev1.synchronize()
+        where[0] = ""
+        tick_ms.append(ev0.elapsed_time(ev1))
+        del svc.plan.tick
+        ev_m, host_m = marks[-1]
+        split.append((ev0.elapsed_time(ev_m), ev_m.elapsed_time(ev1),
+                      (host_m - p0) * 1e3))
+        poll_ms.append((time.perf_counter() - p0) * 1e3)
+        if t in (GROW_T, REPAD_T, TICKS - 1):
+            worst[t] = worst_score_diff(before)
+    launches = sp_ops.LAUNCHES
+    gc.callbacks.remove(on_gc)
+    if launches != TICKS:
+        raise AssertionError(f"sparse_tick launched {launches} times in "
+                             f"{TICKS} ticks")
+    vals, ids = svc.top_anomalies(4)
+    if sorted(ids.tolist()) != planted:
+        raise AssertionError(f"sparse top-4 {ids.tolist()} != planted "
+                             f"{planted}")
+    store = svc.states().edge_weights[sampled].cpu().numpy()
+    bad = [b for r, b in enumerate(sampled)
+           if not fleet.store_matches(b, svc.slot_maps[b], store[r])]
+    if bad:
+        raise AssertionError(f"sparse edge stores differ from the mirror "
+                             f"in streams {bad[:8]}")
+    med = float(np.median(tick_ms))
+    print(f"  {TICKS} ticks (grow_capacity to n_slots={svc.capacity.n_slots}"
+          f" m_pad={svc.capacity.m_pad} queued at tick {GROW_T}, repad to "
+          f"n_pad={svc.config.n_pad} at tick {REPAD_T}): median tick "
+          f"{med:.3f} ms (CUDA events around poll, host-to-device copy "
+          f"included), median host ingest (SlotMap translation and "
+          f"stacking) {np.median(ingest_ms):.1f} ms, "
+          f"{SP_BATCH / med * 1e3:.4g} stream-ticks/s; sparse_tick "
+          f"launches {launches}")
+    print(f"  tick latency min {min(tick_ms):.3f} / max {max(tick_ms):.3f} "
+          f"ms; median host time of poll {np.median(poll_ms):.3f} ms; "
+          f"ingest min {min(ingest_ms):.1f} / max {max(ingest_ms):.1f} ms")
+    med_split = np.median(np.array(split), axis=0)
+    print(f"  poll split at the plan's tick (medians): ingestor copy "
+          f"{med_split[0]:.3f} ms (host {med_split[2]:.3f} ms), launch and "
+          f"kernel {med_split[1]:.3f} ms; every tick's latency: "
+          + " ".join(f"{x:.2f}" for x in tick_ms))
+    print(f"  top-4 {ids.tolist()} == planted {planted}, scores "
+          f"{np.round(vals, 4).tolist()}; {len(sampled)} sampled scores vs "
+          f"batch jsdist_tilde of the relabelled graphs: max |diff| "
+          + ", ".join(f"{v:.3e} at tick {t}" for t, v in worst.items())
+          + f" (bound 5e-3); {len(sampled)} sampled edge stores equal "
+          "the mirror at their SlotMap slots")
+    out["launches"]["sparse_tick"] = launches
+    out["sparse_snap"] = captured["snap"]
+    # The poll's parts: the blocking pageable copy of the stacked delta
+    # (what SyncIngestor.get does) timed alone on a host copy of the
+    # delta of tick TICKS // 2; the kernel is timed after this phase.
+    host = captured["snap"][1].map_tensors(lambda x: x.cpu())
+    copy_ms = cuda_ms(lambda: host.map_tensors(lambda x: x.to(dev)), 10)
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in host.tensors().values())
+    print(f"  poll's parts: host-to-device copy of the {nbytes / 1e6:.1f} MB "
+          f"stacked slot-space delta {copy_ms:.3f} ms; Python garbage "
+          f"collection paused {gc_s['poll'] * 1e3:.1f} ms inside the 20 "
+          f"polls and {gc_s['ingest'] * 1e3:.1f} ms inside the 20 ingests "
+          f"(which took {sum(ingest_ms):.1f} ms)")
+    svc.close()
+
+
+def sparse_bytes(before, after, deltas) -> tuple:
+    """Bytes a sparse tick must move in place and out of place: read the
+    scalars, the strength and mask rows and the delta with its slots;
+    write dist and the scalars, and in place only the strength and mask
+    elements that change and the store slots the gated lanes write (a
+    snapped row's nonzero store elements), out of place the whole rows
+    and store."""
+    import torch
+
+    from repro_torch.graphs.types import (in_range, node_mask_after_joins,
+                                          take_nodes)
+
+    *lead, n = before.strengths.shape
+    rows, m = int(torch.Size(lead).numel()), before.m_pad
+    k, j = deltas.dw.shape[-1], deltas.node_ids.shape[-1]
+    changed = int((after.strengths != before.strengths).sum()) \
+        + int((after.node_mask != before.node_mask).sum())
+    joined = node_mask_after_joins(before.node_mask, deltas)
+    gate = deltas.mask * take_nodes(joined, deltas.senders) \
+        * take_nodes(joined, deltas.receivers)
+    snapped = (after.s_total <= 0)[..., None]
+    store = int(((gate > 0) & in_range(deltas.edge_slots, m)
+                 & ~snapped).sum()) \
+        + int(((before.edge_weights != 0) & snapped).sum())
+    read = rows * (4 * 3 + 8 * n + 24 * k + 8 * j)
+    return (read + rows * 16 + 4 * (changed + store),
+            read + rows * (16 + 8 * n + 4 * m))
+
+
+def sparse_rows(torch, out):
+    """The sparse_tick rows of the kernels line: the in-place launch the
+    sparse path makes on a main-path tick's inputs, and the stacked form
+    over S·B rows on the phase-2 stacked case."""
+    from repro_torch.kernels.sparse_tick import ops as sp_ops
+    from repro_torch.kernels.sparse_tick import parity as sp_parity
+    from repro_torch.kernels.sparse_tick.ref import sparse_tick_ref
+
+    errs, rows = out["errs"], []
+    for name, (snap, deltas), fn in (
+            ("sparse_tick", out["sparse_snap"], sp_ops.sparse_tick_fused),
+            ("sparse_tick_stacked", out["sparse_stacked"],
+             sp_ops.sparse_tick_fused_stacked)):
+        work = snap.map_tensors(torch.clone)
+
+        def restore(work=work, snap=snap):
+            for f in SP_FIELDS:
+                getattr(work, f).copy_(getattr(snap, f))
+
+        want = sparse_tick_ref(snap, deltas, exact_smax=True)
+        got = fn(work, deltas, exact_smax=True, inplace=True)
+        errs[name] = max(errs[name], sp_parity.compare(got, want, name))
+        b_in, b_out = sparse_bytes(snap, work, deltas)
+        del got, want
+        ms = cuda_ms(lambda: fn(work, deltas, exact_smax=True, inplace=True),
+                     50, setup=restore)
+        ms_out = cuda_ms(lambda: fn(snap, deltas, exact_smax=True), 50)
+        ms_again = cuda_ms(lambda: fn(work, deltas, exact_smax=True,
+                                      inplace=True), 50)
+        plain = cuda_ms(lambda: sparse_tick_ref(snap, deltas,
+                                                exact_smax=True), 5)
+        shape = tuple(snap.strengths.shape[:-1]) + (
+            snap.n_slots, snap.m_pad, deltas.dw.shape[-1],
+            deltas.node_ids.shape[-1])
+        print(f"  {name} rows,n_slots,m_pad,k,j={shape}: in place "
+              f"{ms:.4f} ms (bound {b_in / HBM_BYTES_PER_S * 1e3:.6f} ms, "
+              f"{b_in} B), out of place {ms_out:.4f} ms (bound "
+              f"{b_out / HBM_BYTES_PER_S * 1e3:.6f} ms, {b_out} B); in place "
+              f"back to back, the state not restored between calls, "
+              f"{ms_again:.4f} ms")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/sparse_tick.cu",
+            "replaces": "src/repro/kernels/sparse_tick/kernel.py:"
+                        + ("195" if name == "sparse_tick" else "251"),
+            "launches": out["launches"].get(name, 0),
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+            "bound_ms": b_in / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None})
+        print_row(rows[-1])
+        del work
+    return rows
+
+
 def kernel_rows(torch, out):
     """Times, bounds and errors of each kernel at the main path's
     shapes and inputs."""
@@ -563,11 +977,15 @@ def kernel_rows(torch, out):
         "bound_ms": bytes_stats / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": None})
     for r in rows:
-        print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
-              f"ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']}), "
-              f"launches {r['launches']}, max_abs_err "
-              f"{r['max_abs_err']:.3e}")
+        print_row(r)
     return rows
+
+
+def print_row(r: dict) -> None:
+    """One kernel's row of the kernels line, for a reader."""
+    print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
+          f"ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']}), "
+          f"launches {r['launches']}, max_abs_err {r['max_abs_err']:.3e}")
 
 
 def main() -> int:
@@ -619,6 +1037,12 @@ def main() -> int:
         phase = "timing"
         print("kernel times at the main path's shapes and inputs:")
         rows = kernel_rows(torch, out)
+        phase = "sparse"
+        print("phase 5 sparse path (FingerService, sparse_tick):")
+        phase_sparse(args, torch, out, dev)
+        phase = "sparse timing"
+        print("sparse_tick times at the sparse path's shapes and inputs:")
+        rows += sparse_rows(torch, out)
     except Exception:  # report the phase, then fail the run
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED")

@@ -1,0 +1,51 @@
+// One whole Algorithm-2 serving tick per sparse stream: the fused JSdist
+// tick over the n_slots slot axis, plus the (m_pad,) edge-store scatter.
+//
+// Replaces the TPU kernels `sparse_tick_pallas` and
+// `sparse_tick_pallas_stacked` (src/repro/kernels/sparse_tick/kernel.py
+// :195 and :251, body `_kernel` :54); the stacked (S, B) form is the
+// same kernel over S·B rows. It is the dense tick's body over the slot
+// axis (tick_kernel.cuh, instantiated with the edge store): where the
+// Pallas kernel scatters into the store through a (k, m_pad) one-hot,
+// each lane that passes the gate stores max(w_old + Δw, 0) at its slot
+// with one plain store, since slots are unique within a tick. Shared
+// memory grows with k and j only; n_slots and m_pad have no ceiling.
+//
+// What bounds it on the H100: device memory, as for the dense tick, plus
+// the store: read the (n_slots,) strength and mask rows and the delta
+// with its slots; write the changed strength and mask elements and the
+// k store slots in place, or both rows and the (m_pad,) store out of
+// place.
+#include "tick_kernel.cuh"
+
+// Dynamic shared memory one block needs for k edge lanes and j node
+// slots (`TickLayout`, the same layout as the dense tick's).
+REPRO_EXPORT long long sparse_tick_smem_bytes(int k, int j) {
+  return TickLayout(k, j).bytes();
+}
+
+// The card's per-block shared-memory limit (with the opt-in above 48 KB),
+// or -1 with the CUDA error left for cudaGetLastError.
+REPRO_EXPORT long long sparse_tick_smem_limit(int device) {
+  return tick_smem_limit(device);
+}
+
+// Launch one block per stream row on `stream`; returns the launch's
+// cudaError_t (0 on success), cudaErrorInvalidValue when the layout for
+// (k, j) exceeds the card's shared memory per block. `ew_out` may be
+// `edge_weights` (in place), as `str_out` may be `strengths`.
+REPRO_EXPORT int sparse_tick_launch(
+    const float* q, const float* s_total, const float* s_max,
+    const float* strengths, const float* node_mask,
+    const float* edge_weights, const int* senders, const int* receivers,
+    const float* dw, const float* w_old, const float* emask,
+    const int* edge_slots, const int* nid, const float* nflag, float* dist,
+    float* q_out, float* s_out, float* smax_out, float* str_out,
+    float* mask_out, float* ew_out, int rows, int n, int m, int k, int j,
+    int exact_smax, void* stream) {
+  return launch_tick<true>(q, s_total, s_max, strengths, node_mask, senders,
+                           receivers, dw, w_old, emask, nid, nflag, dist,
+                           q_out, s_out, smax_out, str_out, mask_out,
+                           EdgeStore{edge_weights, edge_slots, ew_out, m},
+                           rows, n, k, j, exact_smax, stream);
+}

@@ -8,12 +8,16 @@ is stacked along a leading batch axis, and each tick applies one
   tick : one batched Algorithm-2 step over the B axis. Under
          ``method="fused_tick"`` it is one launch of the `stream_tick`
          kernel (`repro_torch.kernels.stream_tick`); under ``dense`` and
-         ``compact`` it is `jsdist_incremental` on the stacked tensors.
+         ``compact`` it is `jsdist_incremental` on the stacked tensors;
+         under ``sparse_tick`` it is one launch of the `sparse_tick`
+         kernel on a stacked `SparseStreamState` and slot-space deltas.
   run  : T ticks over a stacked (T, B, ·) delta sequence.
 
 Streams need not share a true node count: `init_states` embeds every
 graph into one shared `NodeLayout` with a per-stream node mask, and
-node joins/leaves are per-stream delta slots.
+node joins/leaves are per-stream delta slots. `init_sparse_states`
+gives every graph slots in one shared `SparseLayout` and returns the
+per-stream `SlotMap`s that translate its virtual deltas.
 
 The engine owns its stacked state: `tick` updates it in place (the
 counterpart of JAX's donation), so rebind to the returned state and do
@@ -26,13 +30,17 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.jsdist import jsdist_incremental
+from repro_torch.core.sparse import (SlotMap, SparseLayout,
+                                     SparseStreamState,
+                                     sparse_states_from_graphs)
 from repro_torch.core.state import FingerState, finger_state
 from repro_torch.graphs.layout import NodeLayout
 from repro_torch.graphs.types import GraphDelta
 from repro_torch.kernels.dispatch import Device, resolve_device
+from repro_torch.kernels.sparse_tick.ops import sparse_tick_fused
 from repro_torch.kernels.stream_tick.ops import stream_tick_fused
 
-METHODS = ("dense", "compact", "fused_tick")
+METHODS = ("dense", "compact", "fused_tick", "sparse_tick")
 
 
 def _check_consistent(label: str, kind: str, values) -> None:
@@ -73,7 +81,8 @@ def unstack_states(states: FingerState) -> List[FingerState]:
 
 def stack_deltas(deltas: Sequence[GraphDelta]) -> GraphDelta:
     """[delta_b] → stacked (B, k_pad) GraphDelta; k_pad, n_pad,
-    node-slot presence, j_pad and layout generation must agree."""
+    node-slot presence, j_pad, layout generation and edge-slot presence
+    must agree."""
     deltas = list(deltas)
     _check_consistent("stack_deltas", "k_pad",
                       (d.dw.shape[-1] for d in deltas))
@@ -83,6 +92,8 @@ def stack_deltas(deltas: Sequence[GraphDelta]) -> GraphDelta:
                       (d.node_ids is not None for d in deltas))
     _check_consistent("stack_deltas", "layout_generation",
                       (d.layout_generation for d in deltas))
+    _check_consistent("stack_deltas", "edge_slots presence",
+                      (d.edge_slots is not None for d in deltas))
     if deltas[0].node_ids is not None:
         _check_consistent("stack_deltas", "j_pad",
                           (d.node_ids.shape[-1] for d in deltas))
@@ -99,8 +110,9 @@ class StreamEngine:
     Parameters
     ----------
     exact_smax : recompute s_max exactly after deletions.
-    method : ``"dense"``, ``"compact"`` or ``"fused_tick"`` (one
-        `stream_tick` kernel launch per tick).
+    method : ``"dense"``, ``"compact"``, ``"fused_tick"`` (one
+        `stream_tick` kernel launch per tick) or ``"sparse_tick"`` (one
+        `sparse_tick` launch per tick on slot-space state).
     device : where the engine runs; ``None`` is CUDA. The engine ticks
         whatever state it is given, which `init_states` places there.
     """
@@ -154,17 +166,37 @@ class StreamEngine:
 
         return stack_states([embed(g) for g in graphs]).to(device)
 
+    @staticmethod
+    def init_sparse_states(graphs, layout: SparseLayout, n_virtual: int,
+                           device: Device = None
+                           ) -> Tuple[SparseStreamState, List[SlotMap]]:
+        """Initial stacked `SparseStreamState` on ``device`` (``None`` is
+        CUDA) + per-stream `SlotMap`s, for ``method="sparse_tick"``.
+
+        Every graph's active nodes and edges take slots in the shared
+        `SparseLayout`; the host-side maps own all later virtual-id →
+        slot translation. ``graphs`` is consumed one at a time.
+        """
+        device = resolve_device(device)
+        states, maps = sparse_states_from_graphs(graphs, layout,
+                                                 n_virtual=int(n_virtual))
+        return states.to(device), maps
+
     # -- serving ---------------------------------------------------------
     def tick(self, states: FingerState, deltas: GraphDelta
              ) -> Tuple[torch.Tensor, FingerState]:
         """One serving tick: (B,) JSdist scores + updated stacked state.
 
-        `states` is updated in place under ``fused_tick``; rebind to the
-        returned state either way.
+        `states` is updated in place under ``fused_tick`` and
+        ``sparse_tick``; rebind to the returned state either way.
         """
         deltas = deltas.to(states.strengths.device)
         if self.method == "fused_tick":
             return stream_tick_fused(states, deltas,
+                                     exact_smax=self.exact_smax,
+                                     inplace=True)
+        if self.method == "sparse_tick":
+            return sparse_tick_fused(states, deltas,
                                      exact_smax=self.exact_smax,
                                      inplace=True)
         return jsdist_incremental(states, deltas,

@@ -6,7 +6,9 @@ The port's copy of `repro.graphs.types`, with the same semantics:
 - ``EdgeList``   : padded COO with an explicit validity mask; each
   undirected edge (i, j), i < j, is stored once.
 - ``GraphDelta`` : a padded set of undirected edge-weight changes plus
-  optional node join/leave slots (Theorem 2's ΔG).
+  optional node join/leave slots (Theorem 2's ΔG), and, once a
+  `repro_torch.core.sparse.SlotMap` has translated it into slot space,
+  the edge-store slot of each lane (``edge_slots``).
 
 Node ids are int32 and weights float32 at the public surface, as in the
 JAX package. Every field may carry leading batch axes: a stacked
@@ -255,7 +257,11 @@ class GraphDelta:
     joins/leaves ride in the optional ``node_ids``/``node_flag`` slots
     (+1 join, -1 leave, 0 padding). ``layout_generation`` names the
     migration generation of the layout the delta is addressed in
-    (None = unstamped).
+    (None = unstamped). ``edge_slots`` is the sparse path's edge-store
+    addressing: for a delta translated into slot space, the slot of
+    each lane in the stream's (m_pad,) edge-weight store
+    (`EDGE_SLOT_SENTINEL` on padding and dropped lanes); dense-path
+    deltas leave it None.
     """
 
     senders: torch.Tensor  # (..., k_pad) int32
@@ -267,14 +273,18 @@ class GraphDelta:
     node_ids: Optional[torch.Tensor] = None  # (..., j_pad) int32
     node_flag: Optional[torch.Tensor] = None  # (..., j_pad) float32
     layout_generation: Optional[int] = None
+    edge_slots: Optional[torch.Tensor] = None  # (..., k_pad) int32
 
     def tensors(self) -> dict:
-        """The tensor fields by name (absent node slots left out)."""
+        """The tensor fields by name (absent node and edge slots left
+        out)."""
         out = {f: getattr(self, f) for f in
                ("senders", "receivers", "dw", "w_old", "mask")}
         if self.node_ids is not None:
             out["node_ids"] = self.node_ids
             out["node_flag"] = self.node_flag
+        if self.edge_slots is not None:
+            out["edge_slots"] = self.edge_slots
         return out
 
     def map_tensors(self, fn) -> "GraphDelta":

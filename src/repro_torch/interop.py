@@ -2,10 +2,14 @@
 
 A `FingerState` crosses as a dict of numpy arrays (``q``, ``s_total``,
 ``s_max``, ``strengths`` and, for a mask-aware state, ``node_mask``)
-plus its layout's ``n_pad`` and generation; a `GraphDelta` as a dict of
-its arrays plus ``n_nodes``. This is how the tests feed the JAX
-package's state and deltas into the port and the port's back, and it
-imports nothing of either package beyond the port itself.
+plus its layout's ``n_pad`` and generation; a `SparseStreamState` as
+the same dict plus ``edge_weights`` and its `SparseLayout`'s
+``(n_slots, m_pad, generation)``; a `GraphDelta` as a dict of its
+arrays (``edge_slots`` included when it has them) plus ``n_nodes``. A
+`SlotMap` crosses as its JSON (`SlotMap.to_json` / `from_json`, the same
+format in both packages). This is how the tests feed the JAX package's
+state and deltas into the port and the port's back, and it imports
+nothing of either package beyond the port itself.
 """
 from __future__ import annotations
 
@@ -14,12 +18,13 @@ from typing import Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.sparse import SparseLayout, SparseStreamState
 from repro_torch.core.state import FingerState
 from repro_torch.graphs.layout import NodeLayout
 from repro_torch.graphs.types import GraphDelta
 from repro_torch.kernels.dispatch import Device, resolve_device
 
-_INT_FIELDS = ("senders", "receivers", "node_ids")
+_INT_FIELDS = ("senders", "receivers", "node_ids", "edge_slots")
 
 
 def _tensor(name: str, x, device: torch.device) -> torch.Tensor:
@@ -52,14 +57,40 @@ def state_to_numpy(state: FingerState
     return arrays, state.layout.n_pad, state.layout.generation
 
 
+def sparse_state_from_numpy(arrays: Mapping[str, np.ndarray],
+                            layout: Tuple[int, int, int],
+                            device: Device = None) -> SparseStreamState:
+    """Dict of numpy arrays (``q``, ``s_total``, ``s_max``,
+    ``strengths``, ``node_mask``, ``edge_weights``) and the layout's
+    ``(n_slots, m_pad, generation)`` → SparseStreamState on ``device``
+    (``None`` is CUDA). Leading batch axes are kept."""
+    device = resolve_device(device)
+    t = {k: _tensor(k, v, device) for k, v in arrays.items()}
+    return SparseStreamState(
+        q=t["q"], s_total=t["s_total"], s_max=t["s_max"],
+        strengths=t["strengths"], node_mask=t["node_mask"],
+        edge_weights=t["edge_weights"],
+        layout=SparseLayout(*(int(x) for x in layout)))
+
+
+def sparse_state_to_numpy(state: SparseStreamState
+                          ) -> Tuple[dict, Tuple[int, int, int]]:
+    """SparseStreamState → (dict of numpy arrays, (n_slots, m_pad,
+    generation))."""
+    arrays = {k: v.detach().cpu().numpy()
+              for k, v in state.tensors().items()}
+    lay = state.layout
+    return arrays, (lay.n_slots, lay.m_pad, lay.generation)
+
+
 def delta_from_numpy(arrays: Mapping[str, np.ndarray], n_nodes: int,
                      device: Device = None,
                      layout_generation: Optional[int] = None
                      ) -> GraphDelta:
     """Dict of numpy arrays (``senders``, ``receivers``, ``dw``,
-    ``w_old``, ``mask`` and optionally ``node_ids``/``node_flag``) →
-    GraphDelta on ``device`` (``None`` is CUDA). Leading batch axes are
-    kept."""
+    ``w_old``, ``mask`` and optionally ``node_ids``/``node_flag`` and
+    ``edge_slots``) → GraphDelta on ``device`` (``None`` is CUDA).
+    Leading batch axes are kept."""
     device = resolve_device(device)
     t = {k: _tensor(k, v, device) for k, v in arrays.items()
          if v is not None}
@@ -67,7 +98,8 @@ def delta_from_numpy(arrays: Mapping[str, np.ndarray], n_nodes: int,
                       dw=t["dw"], w_old=t["w_old"], mask=t["mask"],
                       n_nodes=int(n_nodes), node_ids=t.get("node_ids"),
                       node_flag=t.get("node_flag"),
-                      layout_generation=layout_generation)
+                      layout_generation=layout_generation,
+                      edge_slots=t.get("edge_slots"))
 
 
 def delta_to_numpy(delta: GraphDelta) -> dict:

@@ -173,3 +173,50 @@ def check_launch(name: str, err: int) -> None:
 def stream_handle(device: torch.device) -> int:
     """PyTorch's current CUDA stream on ``device``, as a Python int."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def smem_bytes(name: str, k: int, j: int) -> int:
+    """Dynamic shared memory one block of the tick kernel ``name`` needs
+    for k edge lanes and j node slots, as the kernel's own layout
+    (`TickLayout`) computes it."""
+    fn = getattr(library()[name], f"{name}_smem_bytes")
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    return int(fn(k, j))
+
+
+def smem_limit(name: str, device: torch.device) -> int:
+    """The card's shared memory per block, with the opt-in above 48 KB,
+    as the tick kernel ``name``'s library reads it."""
+    fn = getattr(library()[name], f"{name}_smem_limit")
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    limit = int(fn(device.index if device.index is not None
+                   else torch.cuda.current_device()))
+    if limit < 0:
+        raise KernelLaunchError(
+            f"{name}: could not read the card's shared memory limit")
+    return limit
+
+
+def check_smem(name: str, k: int, j: int, device: torch.device) -> None:
+    """Refuse by name a (k_pad, j_pad) whose shared-memory layout is
+    above the card's per-block limit."""
+    need, limit = smem_bytes(name, k, j), smem_limit(name, device)
+    if need > limit:
+        raise ValueError(
+            f"{name}: k_pad={k}, j_pad={j} need {need} bytes of shared "
+            f"memory per block, above the card's {limit}")
+
+
+def check_operands(name: str, device: torch.device, operands) -> None:
+    """Raise by name unless every ``(label, tensor, shape, dtype)`` lies
+    on ``device``, contiguous, with that shape and dtype."""
+    for label, t, shape, dtype in operands:
+        if tuple(t.shape) != tuple(shape) or t.device != device:
+            raise ValueError(
+                f"{name}: {label} tensor has shape {tuple(t.shape)} on "
+                f"{t.device}, expected {tuple(shape)} on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} tensor is not contiguous")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {label} tensor must be {dtype}, got "
+                            f"{t.dtype}")

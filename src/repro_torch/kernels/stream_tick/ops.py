@@ -36,32 +36,19 @@ from repro_torch.kernels.stream_tick.ref import stream_tick_ref
 
 LAUNCHES = 0
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _STATE_FIELDS = ("q", "s_total", "s_max", "strengths", "node_mask")
-
-
-def _lib() -> ctypes.CDLL:
-    return dispatch.library()["stream_tick"]
 
 
 def stream_tick_smem_bytes(k: int, j: int) -> int:
     """Dynamic shared memory one block needs for k edge lanes and j node
     slots, as the kernel's own layout (`TickLayout`) computes it."""
-    fn = _lib().stream_tick_smem_bytes
-    fn.argtypes, fn.restype = [_I, _I], _LL
-    return int(fn(k, j))
+    return dispatch.smem_bytes("stream_tick", k, j)
 
 
 def stream_tick_smem_limit(device: torch.device) -> int:
     """The card's shared memory per block, with the opt-in above 48 KB."""
-    fn = _lib().stream_tick_smem_limit
-    fn.argtypes, fn.restype = [_I], _LL
-    limit = int(fn(device.index if device.index is not None
-                   else torch.cuda.current_device()))
-    if limit < 0:
-        raise dispatch.KernelLaunchError(
-            "stream_tick: could not read the card's shared memory limit")
-    return limit
+    return dispatch.smem_limit("stream_tick", device)
 
 
 def _check_layout(name: str, states: FingerState, deltas: GraphDelta):
@@ -99,37 +86,19 @@ def _launch(states: FingerState, deltas: GraphDelta, exact_smax: bool,
     dl = [deltas.senders, deltas.receivers, deltas.dw, deltas.w_old,
           deltas.mask]
     slots = [] if j == 0 else [deltas.node_ids, deltas.node_flag]
-    for name, t, width in (
-            *((f, t, None) for f, t in zip(_STATE_FIELDS[:3], st[:3])),
-            *((f, t, n) for f, t in zip(_STATE_FIELDS[3:], st[3:])),
-            *(("delta", t, k) for t in dl),
-            *(("node slot", t, j) for t in slots)):
-        want = lead if width is None else (*lead, width)
-        if tuple(t.shape) != want or t.device != dev:
-            raise ValueError(
-                f"stream_tick: {name} tensor has shape {tuple(t.shape)} "
-                f"on {t.device}, expected {want} on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"stream_tick: {name} tensor is not "
-                             "contiguous")
-    for t, dtype in ((deltas.senders, torch.int32),
-                     (deltas.receivers, torch.int32),
-                     *((t, torch.float32) for t in st + dl[2:])):
-        if t.dtype != dtype:
-            raise TypeError(f"stream_tick: expected {dtype}, got "
-                            f"{t.dtype}")
-    if j and (deltas.node_ids.dtype != torch.int32
-              or deltas.node_flag.dtype != torch.float32):
-        raise TypeError("stream_tick: node slots must be int32 ids and "
-                        "float32 flags")
-    smem, limit = stream_tick_smem_bytes(k, j), stream_tick_smem_limit(dev)
-    if smem > limit:
-        raise ValueError(
-            f"stream_tick: k_pad={k}, j_pad={j} need {smem} bytes of "
-            f"shared memory per block, above the card's {limit}")
+    f32, i32 = torch.float32, torch.int32
+    dispatch.check_operands("stream_tick", dev, [
+        *((f, t, lead, f32) for f, t in zip(_STATE_FIELDS[:3], st[:3])),
+        *((f, t, (*lead, n), f32)
+          for f, t in zip(_STATE_FIELDS[3:], st[3:])),
+        *(("delta", t, (*lead, k), dtype)
+          for t, dtype in zip(dl, (i32, i32, f32, f32, f32))),
+        *(("node slot", t, (*lead, j), dtype)
+          for t, dtype in zip(slots, (i32, f32)))])
+    dispatch.check_smem("stream_tick", k, j, dev)
     outs = st if inplace else [torch.empty_like(t) for t in st]
     dist = torch.empty(lead, dtype=torch.float32, device=dev)
-    fn = _lib().stream_tick_launch
+    fn = dispatch.library()["stream_tick"].stream_tick_launch
     fn.argtypes = [_P] * 18 + [_I] * 5 + [_P]
     fn.restype = _I
     nid, nflag = (None, None) if j == 0 else (slots[0].data_ptr(),

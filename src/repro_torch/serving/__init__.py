@@ -2,8 +2,10 @@
 
 `ServiceConfig` states the serving decisions once, `FingerService.open`
 builds its plan and stacked state, and `ingest`/`poll`/`scores`/
-`top_anomalies`/`close` run the lifecycle. Only the local placement
-with synchronous ingestion is ported so far.
+`top_anomalies`/`close` run the lifecycle, on dense or sparse
+(``method="sparse_tick"``) streams; `grow_capacity` and the virtual
+`repad` migrate a sparse service. Only the local placement with
+synchronous ingestion is ported so far.
 """
 from repro_torch.serving.config import (
     CheckpointPolicy,
@@ -12,6 +14,7 @@ from repro_torch.serving.config import (
     TopKSpec,
 )
 from repro_torch.serving.ingest import IngestError
+from repro_torch.serving.migrate import LayoutMigrationError
 from repro_torch.serving.plans import ExecutionPlan, LocalPlan, build_plan
 from repro_torch.serving.service import (
     FingerService,
@@ -21,6 +24,7 @@ from repro_torch.serving.service import (
 
 __all__ = [
     "CheckpointPolicy", "ExecutionPlan", "FingerService", "IngestError",
-    "LocalPlan", "ServiceConfig", "ServiceConfigError",
+    "LayoutMigrationError", "LocalPlan", "ServiceConfig",
+    "ServiceConfigError",
     "ServiceLifecycleError", "TickReport", "TopKSpec", "build_plan",
 ]

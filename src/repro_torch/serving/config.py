@@ -7,7 +7,6 @@ does not have yet:
 
 - ``placement`` other than ``"local"`` (the sharded and multipod plans);
 - ``ingestion="double_buffered"``;
-- ``method="sparse_tick"`` (the slot-space path);
 - a checkpoint directory (save/restore);
 - ``compilation_cache_dir`` (a JAX compilation cache has no counterpart
   until the port captures CUDA graphs).
@@ -35,8 +34,8 @@ class ServiceConfigError(ValueError):
 def _not_yet_ported(what: str) -> ServiceConfigError:
     return ServiceConfigError(
         f"{what} is not yet ported to repro_torch; the port serves "
-        "placement='local', ingestion='sync' and the dense, compact and "
-        "fused_tick methods without checkpoints")
+        "placement='local', ingestion='sync' and the dense, compact, "
+        "fused_tick and sparse_tick methods without checkpoints")
 
 
 def _validate_prune_policy(policy: PrunePolicy) -> None:
@@ -112,9 +111,16 @@ class ServiceConfig:
     k_pad : delta-edge slots per stream per tick.
     j_pad : node join/leave slots per delta (None = no node slots).
     method : ``"dense"`` / ``"compact"`` Δ-statistics on the stacked
-        tensors, or ``"fused_tick"`` — one `stream_tick` kernel launch
-        per tick.
-    n_slots, m_pad : sparse-only capacities; must be None here.
+        tensors, ``"fused_tick"`` — one `stream_tick` kernel launch per
+        tick — or ``"sparse_tick"`` — slot-space streams, one
+        `sparse_tick` launch per tick. Under ``sparse_tick``, ``n_pad``
+        is the virtual id bound the per-stream `SlotMap`s enforce on the
+        host; no device tensor is sized by it.
+    n_slots : sparse only — node-slot capacity per stream (device
+        tensors are (B, n_slots); grown by `FingerService.grow_capacity`).
+        Must be None for the dense methods.
+    m_pad : sparse only — edge-store capacity per stream. Must be None
+        for the dense methods.
     exact_smax : recompute s_max exactly after deletions.
     placement : ``"local"`` (one device).
     ingestion : ``"sync"`` — deltas stay on the host until the tick
@@ -159,8 +165,15 @@ class ServiceConfig:
             raise ServiceConfigError(
                 f"method {self.method!r} not in {METHODS}")
         if self.method == "sparse_tick":
-            raise _not_yet_ported("method='sparse_tick'")
-        if self.n_slots is not None or self.m_pad is not None:
+            if self.n_slots is None or self.n_slots <= 0:
+                raise ServiceConfigError(
+                    f"method='sparse_tick' needs a positive n_slots "
+                    f"slot capacity, got {self.n_slots}")
+            if self.m_pad is None or self.m_pad <= 0:
+                raise ServiceConfigError(
+                    f"method='sparse_tick' needs a positive m_pad "
+                    f"edge-store capacity, got {self.m_pad}")
+        elif self.n_slots is not None or self.m_pad is not None:
             raise ServiceConfigError(
                 f"n_slots/m_pad are sparse-only capacities; "
                 f"method={self.method!r} sizes its state by n_pad "
@@ -198,3 +211,8 @@ class ServiceConfig:
                     f"topk.k={self.topk.k} exceeds the per-shard stream "
                     f"count {per_shard} (batch_size={self.batch_size} "
                     f"over {num_shards} shards)")
+
+    def with_(self, **updates) -> "ServiceConfig":
+        """`dataclasses.replace` spelled as a method (the migrations use
+        it)."""
+        return dataclasses.replace(self, **updates)

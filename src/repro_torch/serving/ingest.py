@@ -5,7 +5,9 @@ The port's counterpart of the synchronous half of `repro.serving.ingest`:
 consumes it, then copies it to the device and blocks until the copy
 lands, so the transfer sits on the tick's critical path. Every delta is
 checked against the service layout up front with a named
-`IngestError`, and the queue is bounded by ``config.max_queue``.
+`IngestError` — a dense delta against ``n_pad``, a slot-space delta
+(``method="sparse_tick"``) against ``n_slots`` — and the queue is
+bounded by ``config.max_queue``.
 
 Not yet ported: the double-buffered ingestor and the old→new remap
 tables that follow layout migrations.
@@ -45,7 +47,35 @@ def validate_stacked_delta(config: ServiceConfig,
         raise IngestError(
             f"stacked delta k_pad {k_pad} != config.k_pad="
             f"{config.k_pad}")
-    if deltas.n_nodes != config.n_pad:
+    if config.method == "sparse_tick":
+        if deltas.edge_slots is None:
+            raise IngestError(
+                "sparse serving queues hold slot-space deltas, but "
+                "this one carries no edge_slots (it is still addressed "
+                "in the virtual space); pass the B per-stream virtual "
+                "deltas to FingerService.ingest as a sequence — the "
+                "service translates each through its stream's SlotMap "
+                "(stateful, tick-ordered), which a pre-stacked delta "
+                "bypasses")
+        if deltas.n_nodes != config.n_slots:
+            raise IngestError(
+                f"slot-space delta n_slots {deltas.n_nodes} != "
+                f"config.n_slots={config.n_slots}; after a "
+                "grow_capacity(), queued deltas are re-embedded "
+                "automatically — a mismatch here means the delta was "
+                "translated against a stale capacity")
+        if deltas.edge_slots.shape != deltas.dw.shape:
+            raise IngestError(
+                f"delta edge_slots shape "
+                f"{tuple(deltas.edge_slots.shape)} != dw shape "
+                f"{tuple(deltas.dw.shape)}")
+    elif deltas.edge_slots is not None:
+        raise IngestError(
+            f"delta carries edge_slots (a sparse slot-space delta) but "
+            f"config.method={config.method!r} serves the dense path; "
+            "slot-space deltas only make sense under "
+            "method='sparse_tick'")
+    elif deltas.n_nodes != config.n_pad:
         raise IngestError(
             f"stacked delta n_pad {deltas.n_nodes} != config.n_pad="
             f"{config.n_pad}")
@@ -96,6 +126,13 @@ class SyncIngestor:
                 f"ingestion queue full ({self.config.max_queue} "
                 f"pending tick(s)); poll() before ingesting more")
         self._queue.append(deltas)
+
+    def take_all(self) -> list:
+        """Pop every pending tick, oldest first (a migration re-lays
+        them out and puts them back)."""
+        out = list(self._queue)
+        self._queue.clear()
+        return out
 
     def get(self) -> Optional[GraphDelta]:
         if not self._queue:

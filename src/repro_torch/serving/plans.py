@@ -2,8 +2,9 @@
 
 The port's counterpart of `repro.serving.plans`, for the local
 placement only: `LocalPlan` runs the `StreamEngine` tick on one device
-and answers global top-k queries. The sharded and multipod plans and
-the warm `PlanCache` are not yet ported.
+— on a stacked `FingerState`, or on a stacked `SparseStreamState` under
+``method="sparse_tick"`` — and answers global top-k queries. The
+sharded and multipod plans and the warm `PlanCache` are not yet ported.
 
 Top-k order. `top_anomalies` sorts the scores with a stable descending
 sort and keeps the first k, which gives `jax.lax.top_k`'s order on ties
@@ -12,10 +13,11 @@ are common.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
+from repro_torch.core.sparse import SparseStreamState
 from repro_torch.core.state import FingerState
 from repro_torch.engine.stream import StreamEngine
 from repro_torch.graphs.types import GraphDelta
@@ -37,8 +39,9 @@ class ExecutionPlan:
     def streams_per_shard(self) -> int:
         return self.config.batch_size // self.num_shards
 
-    def tick(self, states: FingerState, deltas: GraphDelta
-             ) -> Tuple[torch.Tensor, FingerState]:
+    def tick(self, states: Union[FingerState, SparseStreamState],
+             deltas: GraphDelta
+             ) -> Tuple[torch.Tensor, Union[FingerState, SparseStreamState]]:
         """(B,) JSdist scores + updated stacked state (``states`` may be
         updated in place — rebind to the returned one)."""
         raise NotImplementedError

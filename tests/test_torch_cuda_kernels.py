@@ -18,10 +18,14 @@ import pytest
 import torch
 
 from repro_torch.core.jsdist import jsdist_stream
+from repro_torch.core.sparse import stack_sparse_states
 from repro_torch.engine.stream import stack_deltas, stack_states
 from repro_torch.kernels.delta_stats import ops as ds_ops
 from repro_torch.kernels.delta_stats import parity as ds_parity
 from repro_torch.kernels.delta_stats.ref import delta_stats_sorted_ref
+from repro_torch.kernels.sparse_tick import ops as sp_ops
+from repro_torch.kernels.sparse_tick import parity as sp_parity
+from repro_torch.kernels.sparse_tick.ref import sparse_tick_ref
 from repro_torch.kernels.stream_tick import ops as st_ops
 from repro_torch.kernels.stream_tick import parity as st_parity
 from repro_torch.kernels.stream_tick.ref import stream_tick_ref
@@ -128,3 +132,69 @@ def test_single_stream_fused_tick_runs_the_kernel(cuda):
     np.testing.assert_allclose((got.double() ** 2).cpu().numpy(),
                                (want.double() ** 2).cpu().numpy(),
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("shape", [(1000, 333, 777, 37, 3),
+                                   (4096, 1024, 8192, 128, 8)])
+def test_sparse_tick_matches_plain(cuda, shape, exact, inplace):
+    """Two ticks (an emptying then a reviving one on row 0), the second
+    on the kernel's own output; n_slots and m_pad not multiples of 32 in
+    the first shape."""
+    states, d1, d2 = sp_parity.make_case(*shape, seed=3, device=cuda)
+    seen = []
+
+    def tick(s, d, e):
+        out = sp_ops.sparse_tick_fused(s, d, exact_smax=e, inplace=inplace)
+        seen.append((float(out[1].s_total[0]),
+                     float(out[1].edge_weights[0].abs().sum())))
+        return out
+
+    before = sp_ops.LAUNCHES
+    sp_parity.check(tick, (states.map_tensors(torch.clone), d1, d2), exact,
+                    f"sparse_tick {shape}")
+    assert sp_ops.LAUNCHES == before + 2
+    assert seen[0] == (0.0, 0.0)  # row 0 emptied: S' and its store zero
+    assert seen[1][0] > 0.0  # and revived
+
+
+def test_sparse_tick_stacked_matches_plain(cuda):
+    cases = [sp_parity.make_case(64, 200, 500, 16, 4, seed=s, device=cuda)
+             for s in range(3)]
+    states = stack_sparse_states([c[0] for c in cases])
+    deltas = stack_deltas([c[1] for c in cases])
+    got = sp_ops.sparse_tick_fused_stacked(states, deltas, exact_smax=True)
+    want = sparse_tick_ref(states, deltas, exact_smax=True)
+    assert got[0].shape == (3, 64)
+    sp_parity.compare(got, want, label="sparse_tick_stacked")
+
+
+def test_sparse_tick_in_place_matches_out_of_place(cuda):
+    states, d1, _ = sp_parity.make_case(512, 256, 1000, 32, 4, seed=5,
+                                        device=cuda)
+    want = sp_ops.sparse_tick_fused(states, d1, exact_smax=True)
+    copy = states.map_tensors(torch.clone)
+    got = sp_ops.sparse_tick_fused(copy, d1, exact_smax=True, inplace=True)
+    assert got[1].edge_weights.data_ptr() == copy.edge_weights.data_ptr()
+    for a, b in zip([got[0], *got[1].tensors().values()],
+                    [want[0], *want[1].tensors().values()]):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_sparse_tick_without_node_slots(cuda):
+    states, d1, _ = sp_parity.make_case(256, 300, 700, 40, 2, seed=7,
+                                        device=cuda)
+    d1 = dataclasses.replace(d1, node_ids=None, node_flag=None)
+    for exact in (False, True):
+        sp_parity.compare(sp_ops.sparse_tick_fused(states, d1,
+                                                   exact_smax=exact),
+                          sparse_tick_ref(states, d1, exact_smax=exact),
+                          "sparse_tick without node slots")
+
+
+def test_sparse_tick_refuses_too_much_shared_memory(cuda):
+    states, d1, _ = sp_parity.make_case(8, 40000, 20000, 9000, 2, seed=0,
+                                        device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        sp_ops.sparse_tick_fused(states, d1)

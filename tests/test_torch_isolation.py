@@ -5,7 +5,8 @@
 - Asking for ``cuda`` where CUDA is unavailable raises; nothing carries
   on quietly on the CPU.
 - On CPU tensors the kernel wrappers run their plain versions and leave
-  their ``LAUNCHES`` counts unchanged.
+  their ``LAUNCHES`` counts unchanged, and their launchers refuse CPU
+  tensors.
 """
 import ast
 import os
@@ -22,6 +23,8 @@ from repro_torch.graphs.generators import erdos_renyi
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.delta_stats import ops as ds_ops
 from repro_torch.kernels.delta_stats import parity as ds_parity
+from repro_torch.kernels.sparse_tick import ops as sp_ops
+from repro_torch.kernels.sparse_tick import parity as sp_parity
 from repro_torch.kernels.stream_tick import ops as st_ops
 from repro_torch.kernels.stream_tick import parity as st_parity
 
@@ -36,8 +39,13 @@ def _foreign(names):
 def test_import_every_submodule_loads_no_jax_and_no_repro():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                     "repro_torch.")]
-    assert "repro_torch.serving.service" in names
-    assert "repro_torch.kernels.stream_tick.ops" in names
+    ported = ("repro_torch.serving.service",
+              "repro_torch.kernels.stream_tick.ops",
+              "repro_torch.core.sparse", "repro_torch.kernels.sparse_tick.ops",
+              "repro_torch.kernels.sparse_tick.ref",
+              "repro_torch.kernels.sparse_tick.parity",
+              "repro_torch.serving.migrate")
+    assert set(ported) <= set(names)
     code = ("import importlib, sys\n"
             f"for m in {names!r}: importlib.import_module(m)\n"
             "print('\\n'.join(sys.modules))\n")
@@ -45,7 +53,7 @@ def test_import_every_submodule_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
-    assert "repro_torch.serving.service" in out
+    assert set(ported) <= set(out)
     assert _foreign(out) == []
 
 
@@ -94,11 +102,15 @@ def test_cuda_requests_raise_without_cuda(monkeypatch):
                         method="fused_tick")
     with pytest.raises(RuntimeError, match="is_available"):
         FingerService.open(cfg, [g], device="cuda")
+    sparse = ServiceConfig(batch_size=1, n_pad=8, k_pad=2,
+                           method="sparse_tick", n_slots=8, m_pad=32)
+    with pytest.raises(RuntimeError, match="is_available"):
+        FingerService.open(sparse, iter([g]))
     assert dispatch.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_cpu_tensors_run_the_plain_versions_without_launches():
-    st_before, ds_before = st_ops.LAUNCHES, ds_ops.LAUNCHES
+    before = (st_ops.LAUNCHES, ds_ops.LAUNCHES, sp_ops.LAUNCHES)
     states, deltas = st_parity.make_case(8, 40, 8, 2, seed=0,
                                          device="cpu")
     st_ops.stream_tick_fused(states, deltas)
@@ -108,7 +120,13 @@ def test_cpu_tensors_run_the_plain_versions_without_launches():
     from repro_torch.core.jsdist import jsdist_incremental
 
     jsdist_incremental(state, delta, method="fused_tick")
-    assert (st_ops.LAUNCHES, ds_ops.LAUNCHES) == (st_before, ds_before)
+    states, d1, _ = sp_parity.make_case(8, 40, 100, 8, 2, seed=0,
+                                        device="cpu")
+    sp_ops.sparse_tick_fused(states, d1)
+    sp_ops.sparse_tick_fused_stacked(states.map_tensors(lambda x: x[None]),
+                                     d1.map_tensors(lambda x: x[None]),
+                                     inplace=True)
+    assert (st_ops.LAUNCHES, ds_ops.LAUNCHES, sp_ops.LAUNCHES) == before
 
 
 def test_kernel_entry_points_refuse_cpu_tensors():
@@ -120,6 +138,10 @@ def test_kernel_entry_points_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ds_ops.delta_stats_sorted_cuda(*ds_ops.prepare_sorted_delta(
             state.strengths, delta))
+    states, d1, _ = sp_parity.make_case(8, 40, 100, 8, 2, seed=0,
+                                        device="cpu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sp_ops._launch(states, d1, exact_smax=False, inplace=False)
 
 
 def test_missing_nvcc_is_a_named_build_error(monkeypatch, tmp_path):

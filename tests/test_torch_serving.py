@@ -184,7 +184,6 @@ def test_top_k_ties_keep_the_lower_stream_id_first():
     dict(placement="sharded"),
     dict(placement="multipod"),
     dict(ingestion="double_buffered"),
-    dict(method="sparse_tick", n_slots=8, m_pad=8),
     dict(checkpoint=CheckpointPolicy(directory="ckpts")),
     dict(compilation_cache_dir="cache"),
 ])
