@@ -255,7 +255,7 @@ def _advance_edge_store(state: SparseStreamState, delta: GraphDelta,
 
 
 def sparse_jsdist_tick(state: SparseStreamState, delta: GraphDelta,
-                       exact_smax: bool = False, method: str = "compact"
+                       exact_smax: bool = False
                        ) -> Tuple[torch.Tensor, SparseStreamState]:
     """Algorithm 2 on sparse streams: (JSdist, updated state).
 
@@ -267,9 +267,9 @@ def sparse_jsdist_tick(state: SparseStreamState, delta: GraphDelta,
     _require_slot_delta(state, delta, "sparse_jsdist_tick")
     view = state.dense_view()
     half = update_state(view, delta.scaled(0.5), exact_smax=exact_smax,
-                        method=method)
+                        method="compact")
     full = update_state(view, delta, exact_smax=exact_smax,
-                        method=method)
+                        method="compact")
     dist = js_from_entropies(half.h_tilde(), view.h_tilde(),
                              full.h_tilde())
     ew = _advance_edge_store(state, delta, full.s_total)

@@ -22,10 +22,8 @@ __all__ = ["sparse_tick_ref"]
 
 
 def sparse_tick_ref(states: SparseStreamState, deltas: GraphDelta,
-                    exact_smax: bool = False, method: str = "compact"
+                    exact_smax: bool = False
                     ) -> Tuple[torch.Tensor, SparseStreamState]:
     """Batched sparse Algorithm-2 tick: (…) JSdist scores + updated
-    states. ``method`` is ``compact`` (O(Δm) statistics) or ``dense``
-    (an O(n_slots) scatter); both give the same statistics."""
-    return sparse_jsdist_tick(states, deltas, exact_smax=exact_smax,
-                              method=method)
+    states."""
+    return sparse_jsdist_tick(states, deltas, exact_smax=exact_smax)

@@ -211,8 +211,3 @@ class ServiceConfig:
                     f"topk.k={self.topk.k} exceeds the per-shard stream "
                     f"count {per_shard} (batch_size={self.batch_size} "
                     f"over {num_shards} shards)")
-
-    def with_(self, **updates) -> "ServiceConfig":
-        """`dataclasses.replace` spelled as a method (the migrations use
-        it)."""
-        return dataclasses.replace(self, **updates)

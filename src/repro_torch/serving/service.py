@@ -130,7 +130,7 @@ class FingerService:
         is used up."""
         config.validate()
         device = resolve_device(device)
-        if config.method != "sparse_tick" or hasattr(graphs, "__len__"):
+        if config.method != "sparse_tick":
             graphs = list(graphs)
             cls._check_graphs(config, len(graphs),
                               [g.n_nodes for g in graphs])
@@ -228,22 +228,25 @@ class FingerService:
         deltas only."""
         self._check_open("ingest")
         if self._config.method == "sparse_tick":
-            self._ingestor.put(self._translate_sparse(deltas))
+            self._ingest_sparse(deltas)
             return
         if not isinstance(deltas, GraphDelta):
             deltas = stack_deltas(list(deltas))
         self._ingestor.put(deltas)
 
-    def _translate_sparse(self, deltas) -> GraphDelta:
-        """One tick's B per-stream virtual deltas → the stacked
-        slot-space delta, through the per-stream `SlotMap`s.
+    def _ingest_sparse(self, deltas) -> None:
+        """Translate one tick's B per-stream virtual deltas through the
+        per-stream `SlotMap`s, queue the stacked slot-space delta, and
+        only then commit the maps.
 
-        Atomic over the batch: every stream is staged (no change) before
-        any map commits, so a rejection — out of capacity
-        (`SparseCapacityError`), out-of-virtual-space ids, a duplicate
-        edge lane — leaves every SlotMap as it was. The queue-depth
-        check runs first: a translated delta that could not be queued
-        would put the maps out of step with the applied ticks.
+        Atomic over the batch: every stream is staged (no change), the
+        staged deltas are stacked and checked against the service by the
+        queue, and only a queued tick commits. So a rejection — out of
+        capacity (`SparseCapacityError`), out-of-virtual-space ids, a
+        duplicate edge lane, a k_pad or j_pad other than the config's,
+        node slots in some streams and not in others, a full queue —
+        leaves every SlotMap as it was. The queue-depth check also runs
+        first, before the translation's host work.
         """
         if isinstance(deltas, GraphDelta):
             raise IngestError(
@@ -262,8 +265,9 @@ class FingerService:
                 f"ingestion queue full ({self._config.max_queue} "
                 f"pending tick(s)); poll() before ingesting more")
         staged = [sm.stage(d) for sm, d in zip(self._slot_maps, deltas)]
-        return stack_deltas([sm.commit(st)
-                             for sm, st in zip(self._slot_maps, staged)])
+        self._ingestor.put(stack_deltas([st.delta for st in staged]))
+        for sm, st in zip(self._slot_maps, staged):
+            sm.commit(st)
 
     def poll(self) -> Optional[TickReport]:
         """Advance one tick if a delta is queued; None otherwise. The
@@ -333,8 +337,9 @@ class FingerService:
                 f"repad: the sparse virtual space only grows "
                 f"(new_n_pad={new_n_pad} < {old}); nothing is "
                 "sized by n_pad, so shrinking it reclaims nothing")
-        self._config = self._config.with_(n_pad=new_n_pad)
-        self._plan.config = self._plan.config.with_(n_pad=new_n_pad)
+        self._config = dataclasses.replace(self._config, n_pad=new_n_pad)
+        self._plan.config = dataclasses.replace(self._plan.config,
+                                                n_pad=new_n_pad)
         self._ingestor.config = self._config
         for sm in self._slot_maps:
             sm.grow_virtual(new_n_pad)
@@ -359,12 +364,13 @@ class FingerService:
                 f"(method={self._config.method!r}); repad() migrates "
                 "the dense layout")
         new_capacity = self._capacity.grown(n_slots=n_slots, m_pad=m_pad)
-        pending = self._take_pending_migrated(
-            lambda d: migrate.embed_sparse_delta(d, new_capacity.n_slots))
+        pending = [migrate.embed_sparse_delta(d, new_capacity.n_slots)
+                   for d in self._ingestor.take_all()]
         self._states = migrate.grow_sparse_stacked(self._states,
                                                    new_capacity)
-        self._config = self._config.with_(n_slots=new_capacity.n_slots,
-                                          m_pad=new_capacity.m_pad)
+        self._config = dataclasses.replace(
+            self._config, n_slots=new_capacity.n_slots,
+            m_pad=new_capacity.m_pad)
         self._plan = build_plan(self._config, self.device)
         self._capacity = new_capacity
         for sm in self._slot_maps:
@@ -373,19 +379,6 @@ class FingerService:
         for d in pending:
             self._ingestor.put(d)
         return new_capacity
-
-    def _take_pending_migrated(self, transform) -> list:
-        """Drain the queue through ``transform`` (the migration's delta
-        re-layout). Atomic: if any queued tick cannot be migrated, the
-        queue is restored and the migration aborts with the service as
-        it was."""
-        pending = self._ingestor.take_all()
-        try:
-            return [transform(d) for d in pending]
-        except migrate.LayoutMigrationError:
-            for d in pending:
-                self._ingestor.put(d)
-            raise
 
     def close(self) -> None:
         """Wait for in-flight work and drop the queue. Idempotent; every

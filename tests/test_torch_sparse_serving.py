@@ -12,6 +12,8 @@ stream ids exactly, and the `SlotMap`s' JSON exactly. The config checks
 and the sparse-only refusals are held to the reference's error types and
 texts.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -158,7 +160,8 @@ def test_sparse_config_checks_match_the_reference(kw):
 def test_sparse_config_validates_in_both_packages():
     for mod in (jserving, tserving):
         _config(mod).validate(num_shards=1)
-        assert _config(mod).with_(n_pad=7).n_pad == 7
+        dataclasses.replace(_config(mod), n_slots=32,
+                            m_pad=128).validate(num_shards=1)
 
 
 def _svc_pair(**kw):
@@ -236,6 +239,41 @@ def test_sparse_ingest_is_atomic_over_the_batch():
     assert [m.to_json() for m in tsvc.slot_maps] == after
 
 
+def _bad_tick(streams, tick, case):
+    """One tick's per-stream deltas that every SlotMap stages but that
+    the service must refuse once they are stacked."""
+    if case == "k_pad":
+        return streams.deltas(ttypes.GraphDelta, tick, 2 * K_PAD, J_PAD)
+    if case == "j_pad":
+        return streams.deltas(ttypes.GraphDelta, tick, K_PAD, J_PAD + 1)
+    # node slots in every stream but the last
+    ds = streams.deltas(ttypes.GraphDelta, tick, K_PAD, J_PAD)
+    ds[-1] = ttypes.GraphDelta.from_arrays(*tick[-1][:4], n_nodes=N_VIRTUAL,
+                                          k_pad=K_PAD)
+    return ds
+
+
+@pytest.mark.parametrize("case", ["k_pad", "j_pad", "node-slot presence"])
+def test_sparse_ingest_refused_after_staging_commits_no_map(case):
+    """A tick refused only once it is stacked and checked against the
+    config leaves every SlotMap as it was, and the same tick ingested
+    well afterwards keeps the port in step with the reference."""
+    streams, (jsvc, tsvc) = _svc_pair()
+    tick = streams.tick()
+    before = [m.to_json() for m in tsvc.slot_maps]
+    with pytest.raises((tserving.IngestError, ValueError),
+                       match=case.split()[0]):
+        tsvc.ingest(_bad_tick(streams, tick, case))
+    assert [m.to_json() for m in tsvc.slot_maps] == before
+    assert tsvc.pending == 0
+    jsvc.ingest(streams.deltas(jtypes.GraphDelta, tick, K_PAD, J_PAD))
+    tsvc.ingest(streams.deltas(ttypes.GraphDelta, tick, K_PAD, J_PAD))
+    assert [m.to_json() for m in tsvc.slot_maps] != before
+    jsvc.poll()
+    tsvc.poll()
+    _check_tick(jsvc, tsvc, case)
+
+
 def test_service_constructor_checks_match_the_reference():
     streams, (jsvc, tsvc) = _svc_pair()
     cases = [
@@ -244,7 +282,8 @@ def test_service_constructor_checks_match_the_reference():
         (lambda mod, svc: mod.FingerService(svc.config, svc.plan,
                                             svc.states(),
                                             slot_maps=svc.slot_maps[:2])),
-        (lambda mod, svc: mod.FingerService(svc.config.with_(n_slots=32),
+        (lambda mod, svc: mod.FingerService(dataclasses.replace(svc.config,
+                                                                n_slots=32),
                                             svc.plan, svc.states(),
                                             slot_maps=svc.slot_maps)),
     ]
