@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed S] [--batch B]
 
 Run from the root of a checkout; it imports `repro_torch` from
-``src/`` and never JAX or the JAX package. Five phases, each printing a
+``src/`` and never JAX or the JAX package. Six phases, each printing a
 line of its own; any failure exits non-zero:
 
 1. build   — the hand-written kernels from ``src/repro_torch/csrc/``,
@@ -21,7 +21,15 @@ line of its own; any failure exits non-zero:
              out-of-range slots, all-masked rows) at the sparse serving
              size and at a ragged size (n_slots, m_pad not multiples of
              32), both ``exact_smax`` values, out of place and in place,
-             and ``sparse_tick_fused_stacked`` at S = 2.
+             and ``sparse_tick_fused_stacked`` at S = 2; ``vnge_q`` at
+             n = 40, 1000 (ragged) and 8192, with and without a node
+             mask; ``entropy_probe``'s row stats and graph stats at
+             (BH, S) = (192, 128), (48, 1000) (ragged) and (192, 1024)
+             on causal -1e30-masked logits, each kernel on the same
+             inputs as its plain version. Phase 2 first runs the parity
+             discovery (`kernels/parity.py`) and fails by name if a
+             kernel package is missing its ``parity.py`` or is not
+             checked here.
 3. serve   — the main path: `FingerService.open(ServiceConfig(
              method="fused_tick", placement="local", ingestion="sync",
              exact_smax=True, batch_size=32768, n_pad=1024, k_pad=128,
@@ -56,25 +64,44 @@ line of its own; any failure exits non-zero:
              5e-3 after the growth, after the repad and at the end; the
              sampled streams' edge stores equal the mirror's weights at
              their `SlotMap` slots and 0 elsewhere.
+6. train   — the training path: `repro_torch.launch.train.run` on
+             granite-moe-3b-a800m at full width with ``n_layers=8`` (the
+             only cut: 32 layers of f32 AdamW state are 53 GB), batch 8 ×
+             seq 1024, 10 steps, ``probe_every=2``, lr 3e-3. Prints the
+             parameter count, each step's loss, the median step time
+             (CUDA events around the step function) and tokens/s, the
+             peak of `torch.cuda.max_memory_allocated`, the probes'
+             values and the launch counts. Checks: finite losses with
+             the last below the first; finite probe values with
+             ``routing_jsdist`` ≥ 0; ``entropy_probe`` launched once a
+             kernel per probe step and ``vnge_q`` three times per routing
+             update; a checkpoint of the trained key/value projections,
+             router and norm weights with their moments and step
+             restores bit-identical on the card.
 
-Launch counts are set to 0 just before phases 3, 4 and 5 and read just
-after each. Kernel times are CUDA-event means of the launch each path
+Launch counts are set to 0 just before phases 3, 4, 5 and 6 and read
+just after each. Kernel times are CUDA-event means of the launch each path
 makes, at its shapes and inputs: ``stream_tick`` in place on a copy of a
 main-path tick's state restored before every call, ``sparse_tick`` in
 place (and out of place) on a copy of a sparse-path tick's state and
-slot-space delta, ``delta_stats`` on a single-stream update. Bounds
-come from the bytes each launch must move at the H100's 3.35 TB/s (the
+slot-space delta, ``delta_stats`` on a single-stream update,
+``stream_tick_fused_stacked`` out of place on phase 2's stacked case,
+``vnge_q`` on the trained model's routing graph and the probe kernels on
+its probe logits (each also at phase 2's largest shape). Bounds come
+from the bytes each launch must move at the H100's 3.35 TB/s (the
 arithmetic bound is far below), counting only the state elements this
 run's delta changes, and the edge-store slots its gated lanes write, as
 written. The ``stream_tick`` fixed cost is also timed with every edge
 lane masked and with the first 32 lanes only. The line before the last
 is the ``kernels`` JSON object; the last line is the device JSON
 object. Scores and state are compared at the tolerances stated in the
-parity modules (atol 1e-5, rtol 1e-5; the score as a divergence).
+parity modules (atol 1e-5, rtol 1e-5; the score as a divergence;
+``vnge_q`` rtol 3e-5 and ``entropy_probe`` rtol 5e-4, atol 1e-5).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import subprocess
@@ -90,6 +117,14 @@ PRIME_STRIDE = 8209  # a prime above every candidate count 8·n_e ≤ 8160
 # the sparse path: B streams in a 2^20-id virtual space, sized by slots
 N_VIRTUAL, SP_BATCH, SP_SLOTS, SP_M_PAD = 1 << 20, 4096, 1024, 8192
 GROW_T, REPAD_T = 12, 14  # ticks of the capacity growth and the repad
+# the train path: granite-moe-3b-a800m at full width, cut to 8 layers
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = \
+    "granite-moe-3b-a800m", 8, 8, 1024
+TRAIN_STEPS, PROBE_EVERY, TRAIN_LR = 10, 2, 3e-3
+VNGE_NS = (40, 1000, 8192)
+PROBE_SHAPES = ((192, 128), (48, 1000), (192, 1024))
+CHECKED = ("delta_stats", "entropy_probe", "sparse_tick", "stream_tick",
+           "vnge_q")
 SP_FIELDS = ("q", "s_total", "s_max", "strengths", "node_mask",
              "edge_weights")
 
@@ -382,6 +417,7 @@ class SparseFleet(Fleet):
 def phase_kernels(args, torch, out, dev):
     """Phase 2: each kernel against its plain version on the card."""
     from repro_torch.core.sparse import stack_sparse_states
+    from repro_torch.kernels.parity import discover_parity_modules
     from repro_torch.engine.stream import stack_deltas, stack_states
     from repro_torch.kernels.delta_stats import ops as ds_ops
     from repro_torch.kernels.delta_stats import parity as ds_parity
@@ -392,7 +428,14 @@ def phase_kernels(args, torch, out, dev):
     from repro_torch.kernels.stream_tick import parity as st_parity
     from repro_torch.kernels.stream_tick.ref import stream_tick_ref
 
-    errs = {"stream_tick": 0.0, "delta_stats": 0.0, "sparse_tick": 0.0,
+    found = sorted(discover_parity_modules())
+    if found != sorted(CHECKED):
+        raise AssertionError(
+            f"kernel packages {found} but phase 2 checks {sorted(CHECKED)}: "
+            f"not held against a plain version: "
+            f"{sorted(set(found) - set(CHECKED))}")
+    errs = {"stream_tick": 0.0, "stream_tick_stacked": 0.0,
+            "delta_stats": 0.0, "sparse_tick": 0.0,
             "sparse_tick_stacked": 0.0}
     for shape in ((args.batch, N_PAD, K_PAD, J_PAD), (1000, 333, 37, 3)):
         states, deltas = st_parity.make_case(*shape, seed=args.seed,
@@ -417,9 +460,10 @@ def phase_kernels(args, torch, out, dev):
     got = st_ops.stream_tick_fused_stacked(states, deltas, exact_smax=True)
     want = stream_tick_ref(states, deltas, exact_smax=True)
     err = st_parity.compare(got, want, "stream_tick_stacked")
-    errs["stream_tick"] = max(errs["stream_tick"], err)
+    errs["stream_tick_stacked"] = err
     print(f"  stream_tick_fused_stacked S=3 B=2048: max_abs_err={err:.3e}")
-    del cases, states, deltas
+    out["st_stacked"] = (states, deltas)
+    del cases, got, want
     for k, masked in ((1, False), (7, False), (128, False), (1000, False),
                       (5000, False), (128, True)):
         state, delta = ds_parity.make_case(N_PAD * 4, k, seed=k, device=dev,
@@ -468,6 +512,46 @@ def phase_kernels(args, torch, out, dev):
               f"inplace={inplace}, 2 ticks: max_abs_err={err:.3e}")
     out["sparse_stacked"] = (states, d1)
     out["errs"] = errs
+    phase_kernels_train(args, errs, dev)
+
+
+def phase_kernels_train(args, errs, dev):
+    """Phase 2, the train path's kernels: ``vnge_q`` and the two
+    ``entropy_probe`` kernels against their plain versions."""
+    from repro_torch.kernels.entropy_probe import ops as ep_ops
+    from repro_torch.kernels.entropy_probe import parity as ep_parity
+    from repro_torch.kernels.entropy_probe import ref as ep_ref
+    from repro_torch.kernels.vnge_q import ops as vq_ops
+    from repro_torch.kernels.vnge_q import parity as vq_parity
+    from repro_torch.kernels.vnge_q.ref import vnge_q_stats_ref
+
+    errs.update(vnge_q=0.0, row_stats=0.0, graph_stats=0.0)
+    for n in VNGE_NS:
+        for masked in (False, True):
+            w, mask = vq_parity.make_case(n, seed=args.seed + n,
+                                          device=dev, masked=masked)
+            got = vq_ops.vnge_q_stats(w, node_mask=mask)
+            want = vnge_q_stats_ref(vq_ops._apply_node_mask(w, mask))
+            err = vq_parity.compare(got, want, f"vnge_q n={n}")
+            errs["vnge_q"] = max(errs["vnge_q"], err)
+            print(f"  vnge_q n={n} node_mask={masked}: max_abs_err={err:.3e}")
+    for bh, s in PROBE_SHAPES:
+        x = ep_parity.make_case(bh, s, seed=args.seed + s, device=dev)
+        rows = ep_ops.row_stats_cuda(x)
+        e1 = ep_parity.compare(rows, ep_ref.row_stats_ref(x),
+                               f"row_stats {(bh, s)}")
+        e2 = ep_parity.compare(ep_ops.graph_stats_cuda(x, *rows),
+                               ep_ref.graph_stats_ref(x, *rows),
+                               f"graph_stats {(bh, s)}")
+        e3 = ep_parity.compare([ep_ops.attention_graph_stats(x)],
+                               [ep_ref.attention_graph_stats_ref(x)],
+                               f"attention_graph_stats {(bh, s)}")
+        errs["row_stats"] = max(errs["row_stats"], e1)
+        errs["graph_stats"] = max(errs["graph_stats"], e2)
+        print(f"  entropy_probe BH,S={(bh, s)} causal: row_stats "
+              f"max_abs_err={e1:.3e}, graph_stats {e2:.3e}; closed "
+              f"statistics vs the oracle {e3:.3e}")
+        del x, rows
 
 
 def phase_serve(args, torch, out, dev):
@@ -976,8 +1060,215 @@ def kernel_rows(torch, out):
         "max_abs_err": errs["delta_stats"], "ms": ms, "plain_ms": plain,
         "bound_ms": bytes_stats / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": None})
+
+    # the (S, B) form, out of place on phase 2's stacked case; no path
+    # calls it yet (the fleet's pooled tick is not ported)
+    states, deltas = out["st_stacked"]
+    ms = cuda_ms(lambda: st_ops.stream_tick_fused_stacked(
+        states, deltas, exact_smax=True), 20)
+    plain = cuda_ms(lambda: stream_tick_ref(states, deltas, exact_smax=True),
+                    5)
+    *lead, n = states.strengths.shape
+    k, j = deltas.dw.shape[-1], deltas.node_ids.shape[-1]
+    rows_st = lead[0] * lead[1]
+    # read as a tick; written: dist, 3 scalars and the whole rows
+    bytes_stacked = rows_st * (4 * 3 + 8 * n + 20 * k + 8 * j) \
+        + rows_st * (4 * 4 + 8 * n)
+    rows.append({
+        "name": "stream_tick_stacked", "route": "cuda",
+        "source": "src/repro_torch/csrc/stream_tick.cu",
+        "replaces": "src/repro/kernels/stream_tick/kernel.py:242",
+        "launches": 0, "max_abs_err": errs["stream_tick_stacked"],
+        "ms": ms, "plain_ms": plain,
+        "bound_ms": bytes_stacked / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None})
     for r in rows:
         print_row(r)
+    return rows
+
+
+def phase_train(args, torch, out, dev):
+    """Phase 6: the training path with FINGER telemetry."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.entropy_probe import ops as ep_ops
+    from repro_torch.kernels.vnge_q import ops as vq_ops
+    from repro_torch.launch.train import run
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    logs = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    vq_ops.LAUNCHES = 0
+    ep_ops.LAUNCHES.update(row_stats=0, graph_stats=0)
+    t0 = time.perf_counter()
+    params, opt_state, history = run(
+        cfg, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ,
+        probe_every=PROBE_EVERY, seed=args.seed, lr=TRAIN_LR,
+        log=logs.append, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"vnge_q": vq_ops.LAUNCHES, **ep_ops.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in history]
+    step_ms = [h["step_ms"] for h in history]
+    probes = [h for h in history if h["step"] % PROBE_EVERY == 0]
+    ent = [h["attn_entropy_mean"] for h in probes]
+    jsd = [h["routing_jsdist"] for h in probes[1:]]
+    print(f"  {logs[0]}; depth cut: n_layers={TRAIN_LAYERS} of "
+          f"{get_config(TRAIN_ARCH).n_layers}; batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}, {TRAIN_STEPS} steps in {wall:.1f} s")
+    print("  losses " + " ".join(f"{x:.4f}" for x in losses))
+    med = float(np.median(step_ms))
+    print(f"  step time (CUDA events around the step function): median "
+          f"{med:.1f} ms, first {step_ms[0]:.1f} ms, every step "
+          + " ".join(f"{x:.1f}" for x in step_ms)
+          + f"; {TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.1f} tokens/s; peak "
+          f"torch.cuda.max_memory_allocated {peak / 1e9:.2f} GB")
+    print(f"  attn_entropy_mean {ent}; routing_jsdist {jsd}; launches "
+          f"{launches}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train path: losses {losses} are not finite "
+                             "or do not fall")
+    if len(jsd) != len(probes) - 1 or not np.isfinite(ent + jsd).all() \
+            or min(jsd) < 0:
+        raise AssertionError(f"train path: probes {ent} {jsd}")
+    want = {"vnge_q": 3 * (len(probes) - 1), "row_stats": len(probes),
+            "graph_stats": len(probes)}
+    if launches != want:
+        raise AssertionError(f"train path launches {launches} != {want}")
+    out["launches"].update(launches)
+
+    # a checkpoint of the trained key/value projections, router and norm
+    # weights with their moments and the step restores bit-identical on
+    # the card (the whole 10.6 GB state would take minutes to compress)
+    def part(tree):
+        b = tree["blocks"]["L0"]
+        return {"final_norm": tree["final_norm"], "blocks": {"L0": {
+            "ln1": b["ln1"], "ln2": b["ln2"],
+            "attn": {k: b["attn"][k] for k in ("wk", "wv")},
+            "moe": {"router": b["moe"]["router"]}}}}
+
+    tree = {"params": part(params), "opt": AdamWState(
+        step=opt_state.step, mu=part(opt_state.mu), nu=part(opt_state.nu))}
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=root, prefix="train_ckpt_")
+    try:
+        c0 = time.perf_counter()
+        path = save_checkpoint(tmp, TRAIN_STEPS, tree,
+                               metadata={"arch": cfg.name})
+        back, manifest = restore_checkpoint(path, tree)
+        secs = time.perf_counter() - c0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    from repro_torch.models.params import flatten_names
+
+    a, b = flatten_names(tree), flatten_names(back)
+    if list(a) != list(b) or manifest["step"] != TRAIN_STEPS or not all(
+            b[k].device == a[k].device and torch.equal(a[k], b[k])
+            for k in a):
+        raise AssertionError("train path: the checkpoint did not restore "
+                             "bit-identical")
+    n_el = sum(x.numel() for x in a.values())
+    print(f"  checkpoint round trip of {len(a)} arrays ({n_el / 1e6:.1f} M "
+          f"elements, step {int(opt_state.step)}) bit-identical in "
+          f"{secs:.1f} s")
+    batch = synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, args.seed,
+                            (TRAIN_STEPS - 1) // PROBE_EVERY * PROBE_EVERY,
+                            dev)
+    out["train"] = (cfg, params, batch)
+    del opt_state, tree, back
+
+
+def train_rows(torch, out, dev):
+    """The train path's kernels on its own inputs (the trained model's
+    routing graph and probe logits) and at phase 2's largest shapes."""
+    from repro_torch.kernels.entropy_probe import ops as ep_ops
+    from repro_torch.kernels.entropy_probe import parity as ep_parity
+    from repro_torch.kernels.entropy_probe import ref as ep_ref
+    from repro_torch.kernels.vnge_q import ops as vq_ops
+    from repro_torch.kernels.vnge_q import parity as vq_parity
+    from repro_torch.kernels.vnge_q.ref import vnge_q_stats_ref
+    from repro_torch.train.telemetry import (attention_probe_logits,
+                                             routing_graph)
+
+    cfg, params, batch = out.pop("train")
+    errs = out["errs"]
+    w = routing_graph(params, batch, cfg).weights.contiguous()
+    logits = attention_probe_logits(params, batch["tokens"], cfg,
+                                    probe_len=min(TRAIN_SEQ, 128))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs["vnge_q"] = max(errs["vnge_q"], vq_parity.compare(
+        vq_ops.vnge_q_stats_cuda(w), vnge_q_stats_ref(w), "path vnge_q"))
+    rows_in = ep_ops.row_stats_cuda(logits)
+    errs["row_stats"] = max(errs["row_stats"], ep_parity.compare(
+        rows_in, ep_ref.row_stats_ref(logits), "path row_stats"))
+    errs["graph_stats"] = max(errs["graph_stats"], ep_parity.compare(
+        ep_ops.graph_stats_cuda(logits, *rows_in),
+        ep_ref.graph_stats_ref(logits, *rows_in), "path graph_stats"))
+
+    def vnge_times(w):
+        n = w.shape[0]
+        return (cuda_ms(lambda: vq_ops.vnge_q_stats_cuda(w), 200),
+                cuda_ms(lambda: vnge_q_stats_ref(w), 50),
+                (4 * n * n + 16) / HBM_BYTES_PER_S * 1e3)
+
+    def probe_times(x):
+        bh, s, _ = x.shape
+        rm, dn = ep_ops.row_stats_cuda(x)
+        big = 4 * bh * s * s
+        return ((cuda_ms(lambda: ep_ops.row_stats_cuda(x), 100),
+                 cuda_ms(lambda: ep_ref.row_stats_ref(x), 20),
+                 (big + 8 * bh * s) / HBM_BYTES_PER_S * 1e3),
+                (cuda_ms(lambda: ep_ops.graph_stats_cuda(x, rm, dn), 100),
+                 cuda_ms(lambda: ep_ref.graph_stats_ref(x, rm, dn), 20),
+                 (big + 8 * bh * s + 12 * bh + 8 * bh * s)
+                 / HBM_BYTES_PER_S * 1e3))
+
+    big_n = VNGE_NS[-1]
+    big_bh, big_s = PROBE_SHAPES[-1]
+    timed = {"vnge_q": (vnge_times(w), vnge_times(vq_parity.make_case(
+        big_n, seed=1, device=dev)[0]), (w.shape[0],), (big_n,))}
+    path_t = probe_times(logits)
+    big_t = probe_times(ep_parity.make_case(big_bh, big_s, seed=1,
+                                            device=dev))
+    for i, name in enumerate(("row_stats", "graph_stats")):
+        timed[name] = (path_t[i], big_t[i], tuple(logits.shape[:2]),
+                       (big_bh, big_s))
+    where = {"vnge_q": ("src/repro_torch/csrc/vnge_q.cu",
+                        "src/repro/kernels/vnge_q/kernel.py:56"),
+             "row_stats": ("src/repro_torch/csrc/entropy_probe.cu",
+                           "src/repro/kernels/entropy_probe/kernel.py:35"),
+             "graph_stats": ("src/repro_torch/csrc/entropy_probe.cu",
+                             "src/repro/kernels/entropy_probe/kernel.py:42")}
+    rows = []
+    for name, (path, big, shape, big_shape) in timed.items():
+        print(f"  {name} at the path's shape {shape}: {path[0]:.4f} ms "
+              f"(plain {path[1]:.4f} ms, bound {path[2]:.6f} ms); at "
+              f"{big_shape}: {big[0]:.4f} ms (plain {big[1]:.4f} ms, bound "
+              f"{big[2]:.6f} ms)")
+        rows.append({
+            "name": name, "route": "cuda", "source": where[name][0],
+            "replaces": where[name][1],
+            "launches": out["launches"][name], "max_abs_err": errs[name],
+            "ms": path[0], "plain_ms": path[1], "bound_ms": path[2],
+            "bound_by": "bytes", "library_ms": None,
+            "shape": list(shape), "large": {
+                "shape": list(big_shape), "ms": big[0], "plain_ms": big[1],
+                "bound_ms": big[2]}})
+        print_row(rows[-1])
     return rows
 
 
@@ -1043,6 +1334,14 @@ def main() -> int:
         phase = "sparse timing"
         print("sparse_tick times at the sparse path's shapes and inputs:")
         rows += sparse_rows(torch, out)
+        out.pop("sparse_snap")
+        out.pop("sparse_stacked")
+        phase = "train"
+        print("phase 6 train path (launch.train.run, FINGER telemetry):")
+        phase_train(args, torch, out, dev)
+        phase = "train timing"
+        print("vnge_q and entropy_probe times at the train path's inputs:")
+        rows += train_rows(torch, out, dev)
     except Exception:  # report the phase, then fail the run
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED")

@@ -7,9 +7,13 @@ the same dict plus ``edge_weights`` and its `SparseLayout`'s
 ``(n_slots, m_pad, generation)``; a `GraphDelta` as a dict of its
 arrays (``edge_slots`` included when it has them) plus ``n_nodes``. A
 `SlotMap` crosses as its JSON (`SlotMap.to_json` / `from_json`, the same
-format in both packages). This is how the tests feed the JAX package's
-state and deltas into the port and the port's back, and it imports
-nothing of either package beyond the port itself.
+format in both packages). Model parameters cross as a nested dict of
+numpy arrays with the reference's keys (the JAX parameter pytree after
+``np.asarray`` on each leaf), and an AdamW state as
+``{"step", "mu", "nu"}`` of the same. This is how the tests feed the
+JAX package's state, deltas, parameters and optimizer state into the
+port and the port's back, and it imports nothing of either package
+beyond the port itself.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ from repro_torch.core.state import FingerState
 from repro_torch.graphs.layout import NodeLayout
 from repro_torch.graphs.types import GraphDelta
 from repro_torch.kernels.dispatch import Device, resolve_device
+from repro_torch.models.params import map_tree
+from repro_torch.optim.adamw import AdamWState
 
 _INT_FIELDS = ("senders", "receivers", "node_ids", "edge_slots")
 
@@ -105,3 +111,35 @@ def delta_from_numpy(arrays: Mapping[str, np.ndarray], n_nodes: int,
 def delta_to_numpy(delta: GraphDelta) -> dict:
     """GraphDelta → dict of numpy arrays (``n_nodes`` not included)."""
     return {k: v.detach().cpu().numpy() for k, v in delta.tensors().items()}
+
+
+def params_from_numpy(tree: Mapping, device: Device = None) -> dict:
+    """Nested dict of numpy arrays (the JAX parameter pytree) → the
+    port's nested dict of float32 tensors on ``device`` (``None`` is
+    CUDA), with the same keys."""
+    device = resolve_device(device)
+    return map_tree(lambda x: torch.from_numpy(
+        np.array(x, dtype=np.float32)).to(device), tree)
+
+
+def params_to_numpy(params: Mapping) -> dict:
+    """The port's parameters → nested dict of numpy arrays."""
+    return map_tree(lambda t: t.detach().cpu().numpy(), params)
+
+
+def opt_state_from_numpy(arrays: Mapping, device: Device = None
+                         ) -> AdamWState:
+    """``{"step": int32 (), "mu": tree, "nu": tree}`` of numpy arrays
+    (the JAX `AdamWState`'s fields) → the port's `AdamWState`."""
+    device = resolve_device(device)
+    step = torch.from_numpy(np.array(arrays["step"], dtype=np.int32))
+    return AdamWState(step=step.to(device),
+                      mu=params_from_numpy(arrays["mu"], device),
+                      nu=params_from_numpy(arrays["nu"], device))
+
+
+def opt_state_to_numpy(state: AdamWState) -> dict:
+    """The port's `AdamWState` → ``{"step", "mu", "nu"}`` of numpy."""
+    return {"step": state.step.detach().cpu().numpy(),
+            "mu": params_to_numpy(state.mu),
+            "nu": params_to_numpy(state.nu)}

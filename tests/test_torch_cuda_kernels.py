@@ -9,7 +9,9 @@ Run them on the card with
 
 Tolerances are those of the parity modules (`kernels/*/parity.py`):
 atol 1e-5 with rtol 1e-5 on state and statistics, exact masks, and the
-score compared as a divergence (see `stream_tick.parity`).
+score compared as a divergence (see `stream_tick.parity`); ``vnge_q``
+at rtol 3e-5 and ``entropy_probe`` at rtol 5e-4 (atol 1e-5), the
+reference's own kernel-test tolerances.
 """
 import dataclasses
 
@@ -23,12 +25,18 @@ from repro_torch.engine.stream import stack_deltas, stack_states
 from repro_torch.kernels.delta_stats import ops as ds_ops
 from repro_torch.kernels.delta_stats import parity as ds_parity
 from repro_torch.kernels.delta_stats.ref import delta_stats_sorted_ref
+from repro_torch.kernels.entropy_probe import ops as ep_ops
+from repro_torch.kernels.entropy_probe import parity as ep_parity
+from repro_torch.kernels.entropy_probe import ref as ep_ref
 from repro_torch.kernels.sparse_tick import ops as sp_ops
 from repro_torch.kernels.sparse_tick import parity as sp_parity
 from repro_torch.kernels.sparse_tick.ref import sparse_tick_ref
 from repro_torch.kernels.stream_tick import ops as st_ops
 from repro_torch.kernels.stream_tick import parity as st_parity
 from repro_torch.kernels.stream_tick.ref import stream_tick_ref
+from repro_torch.kernels.vnge_q import ops as vq_ops
+from repro_torch.kernels.vnge_q import parity as vq_parity
+from repro_torch.kernels.vnge_q.ref import vnge_q_stats_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -198,3 +206,49 @@ def test_sparse_tick_refuses_too_much_shared_memory(cuda):
                                         device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         sp_ops.sparse_tick_fused(states, d1)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [1, 40, 1000, 4099])
+def test_vnge_q_matches_plain(cuda, n, masked):
+    """n = 40 is the routing graph; 1000 and 4099 are ragged."""
+    w, mask = vq_parity.make_case(n, seed=n, device=cuda, masked=masked)
+    before = vq_ops.LAUNCHES
+    got = vq_ops.vnge_q_stats(w, node_mask=mask)
+    torch.cuda.synchronize()
+    assert vq_ops.LAUNCHES == before + 1
+    want = vnge_q_stats_ref(vq_ops._apply_node_mask(w, mask))
+    vq_parity.compare(got, want, f"vnge_q n={n}")
+
+
+def test_vnge_q_repeats_bit_for_bit_and_is_zero_when_empty(cuda):
+    w, _ = vq_parity.make_case(3000, seed=1, device=cuda)
+    a, b = vq_ops.vnge_q_stats(w), vq_ops.vnge_q_stats(w)
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+    zero = vq_ops.vnge_q_stats(torch.zeros((77, 77), device=cuda))
+    assert zero.abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,s", [(192, 128), (48, 1000), (3, 1),
+                                  (5, 65), (8, 1024)])
+def test_entropy_probe_kernels_match_plain(cuda, bh, s, causal):
+    """(192, 128) is the training probe; 1000, 1 and 65 are ragged."""
+    x = ep_parity.make_case(bh, s, seed=s, device=cuda, causal=causal)
+    before = dict(ep_ops.LAUNCHES)
+    rows = ep_ops.row_stats_cuda(x)
+    ep_parity.compare(rows, ep_ref.row_stats_ref(x), f"row_stats {s}")
+    got = ep_ops.graph_stats_cuda(x, *rows)
+    ep_parity.compare(got, ep_ref.graph_stats_ref(x, *rows),
+                      f"graph_stats {s}")
+    assert ep_ops.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    ep_parity.compare([ep_ops.attention_graph_stats(x)],
+                      [ep_ref.attention_graph_stats_ref(x)],
+                      f"attention_graph_stats {s}")
+
+
+def test_entropy_probe_repeats_bit_for_bit(cuda):
+    x = ep_parity.make_case(16, 300, seed=2, device=cuda)
+    a = ep_ops.attention_graph_stats(x)
+    b = ep_ops.attention_graph_stats(x)
+    torch.testing.assert_close(a, b, atol=0, rtol=0)

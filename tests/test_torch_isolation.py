@@ -7,6 +7,8 @@
 - On CPU tensors the kernel wrappers run their plain versions and leave
   their ``LAUNCHES`` counts unchanged, and their launchers refuse CPU
   tensors.
+- Every kernel package ships a ``parity.py``; discovery fails by name
+  for one that does not.
 """
 import ast
 import os
@@ -23,10 +25,16 @@ from repro_torch.graphs.generators import erdos_renyi
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.delta_stats import ops as ds_ops
 from repro_torch.kernels.delta_stats import parity as ds_parity
+from repro_torch.kernels.entropy_probe import ops as ep_ops
+from repro_torch.kernels.entropy_probe import parity as ep_parity
+from repro_torch.kernels.parity import (ParityRegistrationError,
+                                        discover_parity_modules)
 from repro_torch.kernels.sparse_tick import ops as sp_ops
 from repro_torch.kernels.sparse_tick import parity as sp_parity
 from repro_torch.kernels.stream_tick import ops as st_ops
 from repro_torch.kernels.stream_tick import parity as st_parity
+from repro_torch.kernels.vnge_q import ops as vq_ops
+from repro_torch.kernels.vnge_q import parity as vq_parity
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -44,7 +52,16 @@ def test_import_every_submodule_loads_no_jax_and_no_repro():
               "repro_torch.core.sparse", "repro_torch.kernels.sparse_tick.ops",
               "repro_torch.kernels.sparse_tick.ref",
               "repro_torch.kernels.sparse_tick.parity",
-              "repro_torch.serving.migrate")
+              "repro_torch.serving.migrate",
+              "repro_torch.configs.granite_moe_3b",
+              "repro_torch.models.transformer", "repro_torch.models.moe",
+              "repro_torch.models.api", "repro_torch.data.pipeline",
+              "repro_torch.optim.adamw", "repro_torch.train.step",
+              "repro_torch.train.telemetry", "repro_torch.train.checkpoint",
+              "repro_torch.train.fault_tolerance",
+              "repro_torch.launch.train", "repro_torch.kernels.parity",
+              "repro_torch.kernels.vnge_q.ops",
+              "repro_torch.kernels.entropy_probe.ops")
     assert set(ported) <= set(names)
     code = ("import importlib, sys\n"
             f"for m in {names!r}: importlib.import_module(m)\n"
@@ -106,11 +123,24 @@ def test_cuda_requests_raise_without_cuda(monkeypatch):
                            method="sparse_tick", n_slots=8, m_pad=32)
     with pytest.raises(RuntimeError, match="is_available"):
         FingerService.open(sparse, iter([g]))
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.train import run
+    from repro_torch import interop
+
+    cfg = get_config("granite-moe-3b-a800m").reduced()
+    with pytest.raises(RuntimeError, match="is_available"):
+        run(cfg, steps=1, batch_size=1, seq=8, log=lambda *a: None)
+    with pytest.raises(RuntimeError, match="is_available"):
+        synthetic_batch(cfg, 1, 8, seed=0, step=0)
+    with pytest.raises(RuntimeError, match="is_available"):
+        interop.params_from_numpy({"w": [1.0]})
     assert dispatch.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_cpu_tensors_run_the_plain_versions_without_launches():
-    before = (st_ops.LAUNCHES, ds_ops.LAUNCHES, sp_ops.LAUNCHES)
+    before = (st_ops.LAUNCHES, ds_ops.LAUNCHES, sp_ops.LAUNCHES,
+              vq_ops.LAUNCHES, dict(ep_ops.LAUNCHES))
     states, deltas = st_parity.make_case(8, 40, 8, 2, seed=0,
                                          device="cpu")
     st_ops.stream_tick_fused(states, deltas)
@@ -126,7 +156,13 @@ def test_cpu_tensors_run_the_plain_versions_without_launches():
     sp_ops.sparse_tick_fused_stacked(states.map_tensors(lambda x: x[None]),
                                      d1.map_tensors(lambda x: x[None]),
                                      inplace=True)
-    assert (st_ops.LAUNCHES, ds_ops.LAUNCHES, sp_ops.LAUNCHES) == before
+    w, mask = vq_parity.make_case(40, seed=0, device="cpu", masked=True)
+    vq_ops.vnge_q_stats(w, node_mask=mask)
+    vq_ops.vnge_tilde_dense(w)
+    ep_ops.attention_graph_entropy(ep_parity.make_case(2, 40, seed=0,
+                                                       device="cpu"))
+    assert (st_ops.LAUNCHES, ds_ops.LAUNCHES, sp_ops.LAUNCHES,
+            vq_ops.LAUNCHES, ep_ops.LAUNCHES) == before
 
 
 def test_kernel_entry_points_refuse_cpu_tensors():
@@ -142,6 +178,27 @@ def test_kernel_entry_points_refuse_cpu_tensors():
                                         device="cpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
         sp_ops._launch(states, d1, exact_smax=False, inplace=False)
+    w, _ = vq_parity.make_case(40, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        vq_ops.vnge_q_stats_cuda(w)
+    x = ep_parity.make_case(2, 40, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ep_ops.row_stats_cuda(x)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ep_ops.graph_stats_cuda(x, x[:, 0], x[:, 0])
+
+
+def test_parity_discovery_covers_every_kernel_and_fails_by_name(tmp_path):
+    assert sorted(discover_parity_modules()) == [
+        "delta_stats", "entropy_probe", "sparse_tick", "stream_tick",
+        "vnge_q"]
+    for name in ("has_parity", "no_parity"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "ops.py").write_text("")
+    (tmp_path / "has_parity" / "parity.py").write_text("")
+    (tmp_path / "not_a_kernel").mkdir()
+    with pytest.raises(ParityRegistrationError, match="no_parity"):
+        discover_parity_modules(tmp_path)
 
 
 def test_missing_nvcc_is_a_named_build_error(monkeypatch, tmp_path):
