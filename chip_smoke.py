@@ -68,34 +68,44 @@ line of its own; any failure exits non-zero:
              granite-moe-3b-a800m at full width with ``n_layers=8`` (the
              only cut: 32 layers of f32 AdamW state are 53 GB), batch 8 ×
              seq 1024, 10 steps, ``probe_every=2``, lr 3e-3. Prints the
-             parameter count, each step's loss, the median step time
-             (CUDA events around the step function) and tokens/s, the
-             peak of `torch.cuda.max_memory_allocated`, the probes'
-             values and the launch counts. Checks: finite losses with
-             the last below the first; finite probe values with
+             parameter count, each step's loss and gradient norm, the
+             median step time (CUDA events around the step function) and
+             tokens/s, the peak of `torch.cuda.max_memory_allocated`, the
+             probes' values, the launch counts, the step's split
+             (forward alone and the clip + AdamW update alone, timed with
+             CUDA events after the run; the rest is the backward), and
+             the loss of step 0's batch at init and after training (the
+             same tokens; printed, not gated: ROADMAP Queue 3). Checks:
+             finite losses and gradient norms; the optimizer's step is
+             10; every parameter leaf moved off its init and both
+             moments of every leaf off 0; finite probe values with
              ``routing_jsdist`` ≥ 0; ``entropy_probe`` launched once a
-             kernel per probe step and ``vnge_q`` three times per routing
-             update; a checkpoint of the trained key/value projections,
-             router and norm weights with their moments and step
-             restores bit-identical on the card.
+             kernel per probe step, ``vnge_q`` three times per routing
+             update and no other kernel; a checkpoint of the trained
+             embedding, the first expert stack (``w_gate`` over all
+             layers), the key/value projections, router and norm weights
+             with their moments and step restores bit-identical on the
+             card (seconds printed); a second run from the same seed
+             repeats every loss bit for bit.
 
-Launch counts are set to 0 just before phases 3, 4, 5 and 6 and read
-just after each. Kernel times are CUDA-event means of the launch each path
-makes, at its shapes and inputs: ``stream_tick`` in place on a copy of a
-main-path tick's state restored before every call, ``sparse_tick`` in
-place (and out of place) on a copy of a sparse-path tick's state and
-slot-space delta, ``delta_stats`` on a single-stream update,
-``stream_tick_fused_stacked`` out of place on phase 2's stacked case,
-``vnge_q`` on the trained model's routing graph and the probe kernels on
-its probe logits (each also at phase 2's largest shape). Bounds come
-from the bytes each launch must move at the H100's 3.35 TB/s (the
-arithmetic bound is far below), counting only the state elements this
-run's delta changes, and the edge-store slots its gated lanes write, as
-written. The ``stream_tick`` fixed cost is also timed with every edge
-lane masked and with the first 32 lanes only. The line before the last
-is the ``kernels`` JSON object; the last line is the device JSON
-object. Scores and state are compared at the tolerances stated in the
-parity modules (atol 1e-5, rtol 1e-5; the score as a divergence;
+Every wrapper's launch count is set to 0 just before phases 3, 4, 5 and
+6 and read just after each; a kernel's ``launches`` in the kernels line
+is the sum over those paths. Kernel times are CUDA-event means of the
+launch each path makes, at its shapes and inputs: ``stream_tick`` in
+place on a copy of a main-path tick's state restored before every call,
+``sparse_tick`` in place (and out of place) on a copy of a sparse-path
+tick's state and slot-space delta, ``delta_stats`` on a single-stream
+update, ``stream_tick_fused_stacked`` out of place on phase 2's stacked
+case, ``vnge_q`` on the trained model's routing graph and the probe
+kernels on its probe logits (each also at phase 2's largest shape).
+Bounds come from the bytes each launch must move at the H100's 3.35 TB/s
+(the arithmetic bound is far below), counting only the state elements
+this run's delta changes, and the edge-store slots its gated lanes
+write, as written. The ``stream_tick`` fixed cost is also timed with
+every edge lane masked and with the first 32 lanes only. The line before
+the last is the ``kernels`` JSON object; the last line is the device
+JSON object. Scores and state are compared at the tolerances stated in
+the parity modules (atol 1e-5, rtol 1e-5; the score as a divergence;
 ``vnge_q`` rtol 3e-5 and ``entropy_probe`` rtol 5e-4, atol 1e-5).
 """
 from __future__ import annotations
@@ -157,6 +167,37 @@ def cuda_ms(fn, reps: int, setup=None) -> float:
         end.synchronize()
         total += start.elapsed_time(end) if rep else 0.0  # first: warm-up
     return total / reps
+
+
+def kernel_ops():
+    """The ``ops`` module of every kernel package phase 2 checks."""
+    import importlib
+
+    return [importlib.import_module(f"repro_torch.kernels.{name}.ops")
+            for name in CHECKED]
+
+
+def zero_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for mod in kernel_ops():
+        if isinstance(mod.LAUNCHES, dict):
+            mod.LAUNCHES.update(dict.fromkeys(mod.LAUNCHES, 0))
+        else:
+            mod.LAUNCHES = 0
+
+
+def read_counts(out) -> dict:
+    """Every wrapper's launch count since `zero_counts`, by kernel row
+    name; also added to ``out["launches"]``, the kernels line's counts
+    summed over the paths."""
+    got = {}
+    for mod in kernel_ops():
+        got.update(mod.LAUNCHES if isinstance(mod.LAUNCHES, dict)
+                   else {mod.__name__.split(".")[-2]: mod.LAUNCHES})
+    total = out.setdefault("launches", {})
+    for name, n in got.items():
+        total[name] = total.get(name, 0) + n
+    return got
 
 
 class Fleet:
@@ -559,7 +600,6 @@ def phase_serve(args, torch, out, dev):
     import numpy as np
 
     from repro_torch.core.jsdist import jsdist_tilde
-    from repro_torch.kernels.stream_tick import ops as st_ops
     from repro_torch.serving import FingerService, ServiceConfig, TopKSpec
 
     if args.batch != 32768:
@@ -587,7 +627,7 @@ def phase_serve(args, torch, out, dev):
                      | set(planted))
     tick_ms, wall_ms = [], []
     snap = None
-    st_ops.LAUNCHES = 0
+    zero_counts()
     for t in range(TICKS):
         last = t == TICKS - 1
         if last:
@@ -607,7 +647,7 @@ def phase_serve(args, torch, out, dev):
         ev1.synchronize()
         wall_ms.append((time.perf_counter() - h0) * 1e3)
         tick_ms.append(ev0.elapsed_time(ev1))
-    launches = st_ops.LAUNCHES
+    launches = read_counts(out)["stream_tick"]
     scores = svc.scores()
     if not np.isfinite(scores).all() or scores.shape != (args.batch,):
         raise AssertionError("main path: non-finite or misshapen scores")
@@ -635,7 +675,6 @@ def phase_serve(args, torch, out, dev):
     print(f"  top-4 {ids.tolist()} == planted {planted}, scores "
           f"{np.round(vals, 4).tolist()}; {len(sampled)} sampled scores "
           f"vs batch jsdist_tilde: max |diff| {worst:.3e} (bound 5e-3)")
-    out["launches"] = {"stream_tick": launches}
     out["snap"] = snap
     traced_tick(torch, svc, fleet.tick())
     svc.close()
@@ -701,18 +740,17 @@ def phase_single(args, torch, out, dev):
     from repro_torch.core.jsdist import jsdist_stream
     from repro_torch.core.state import finger_state
     from repro_torch.engine.stream import stack_deltas
-    from repro_torch.kernels.delta_stats import ops as ds_ops
 
     fleet = Fleet(1, args.seed + 2, n_lo=N_PAD, n_hi=N_PAD)
     g = fleet.graph_at(0, fleet.w[0], fleet.active[0], dev)
     state = finger_state(g)
     deltas = stack_deltas([fleet.tick().map_tensors(lambda x: x[0])
                            for _ in range(20)]).to(dev)
-    ds_ops.LAUNCHES = 0
+    zero_counts()
     got, got_state = jsdist_stream(state, deltas, exact_smax=True,
                                    method="fused_tick")
     torch.cuda.synchronize()
-    launches = ds_ops.LAUNCHES
+    launches = read_counts(out)["delta_stats"]
     want, want_state = jsdist_stream(state, deltas, exact_smax=True,
                                      method="dense")
     div_err = float((got.double() ** 2 - want.double() ** 2).abs().max())
@@ -728,7 +766,6 @@ def phase_single(args, torch, out, dev):
                              "20 deltas (2 updates each)")
     print(f"  20 deltas, n_pad={N_PAD}, k_pad={K_PAD}: divergence max "
           f"|diff| vs dense {div_err:.3e}; delta_stats launches {launches}")
-    out["launches"]["delta_stats"] = launches
     out["single"] = (state, deltas.map_tensors(lambda x: x[0]))
 
 
@@ -737,7 +774,6 @@ def phase_sparse(args, torch, out, dev):
     import numpy as np
 
     from repro_torch.core.jsdist import jsdist_tilde
-    from repro_torch.kernels.sparse_tick import ops as sp_ops
     from repro_torch.serving import FingerService, ServiceConfig, TopKSpec
 
     t0 = time.perf_counter()
@@ -808,7 +844,7 @@ def phase_sparse(args, torch, out, dev):
             gc_s[where[0]] += time.perf_counter() - gc_t0[0]
 
     gc.callbacks.append(on_gc)
-    sp_ops.LAUNCHES = 0
+    zero_counts()
     for t in range(TICKS):
         last = t == TICKS - 1
         before = (fleet.w[sampled].copy(), fleet.active[sampled].copy())
@@ -843,7 +879,7 @@ def phase_sparse(args, torch, out, dev):
         poll_ms.append((time.perf_counter() - p0) * 1e3)
         if t in (GROW_T, REPAD_T, TICKS - 1):
             worst[t] = worst_score_diff(before)
-    launches = sp_ops.LAUNCHES
+    launches = read_counts(out)["sparse_tick"]
     gc.callbacks.remove(on_gc)
     if launches != TICKS:
         raise AssertionError(f"sparse_tick launched {launches} times in "
@@ -881,7 +917,6 @@ def phase_sparse(args, torch, out, dev):
           + ", ".join(f"{v:.3e} at tick {t}" for t, v in worst.items())
           + f" (bound 5e-3); {len(sampled)} sampled edge stores equal "
           "the mirror at their SlotMap slots")
-    out["launches"]["sparse_tick"] = launches
     out["sparse_snap"] = captured["snap"]
     # The poll's parts: the blocking pageable copy of the stacked delta
     # (what SyncIngestor.get does) timed alone on a host copy of the
@@ -972,7 +1007,7 @@ def sparse_rows(torch, out):
             "source": "src/repro_torch/csrc/sparse_tick.cu",
             "replaces": "src/repro/kernels/sparse_tick/kernel.py:"
                         + ("195" if name == "sparse_tick" else "251"),
-            "launches": out["launches"].get(name, 0),
+            "launches": out["launches"][name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": b_in / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None})
@@ -1062,7 +1097,8 @@ def kernel_rows(torch, out):
         "bound_by": "bytes", "library_ms": None})
 
     # the (S, B) form, out of place on phase 2's stacked case; no path
-    # calls it yet (the fleet's pooled tick is not ported)
+    # calls it yet (the fleet's pooled tick is not ported), so its count
+    # from the paths is 0
     states, deltas = out["st_stacked"]
     ms = cuda_ms(lambda: st_ops.stream_tick_fused_stacked(
         states, deltas, exact_smax=True), 20)
@@ -1078,7 +1114,8 @@ def kernel_rows(torch, out):
         "name": "stream_tick_stacked", "route": "cuda",
         "source": "src/repro_torch/csrc/stream_tick.cu",
         "replaces": "src/repro/kernels/stream_tick/kernel.py:242",
-        "launches": 0, "max_abs_err": errs["stream_tick_stacked"],
+        "launches": out["launches"]["stream_tick_stacked"],
+        "max_abs_err": errs["stream_tick_stacked"],
         "ms": ms, "plain_ms": plain,
         "bound_ms": bytes_stacked / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": None})
@@ -1096,30 +1133,37 @@ def phase_train(args, torch, out, dev):
 
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import synthetic_batch
-    from repro_torch.kernels.entropy_probe import ops as ep_ops
-    from repro_torch.kernels.vnge_q import ops as vq_ops
     from repro_torch.launch.train import run
-    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.models.api import build_loss_fn, model_param_defs
+    from repro_torch.models.params import (flatten_names, init_params,
+                                           map_tree)
+    from repro_torch.optim.adamw import AdamWConfig, AdamWState, apply_update
     from repro_torch.train.checkpoint import (restore_checkpoint,
                                               save_checkpoint)
+    from repro_torch.train.telemetry import (attention_probe_logits,
+                                             routing_graph)
 
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+
+    def train(log):
+        return run(cfg, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                   seq=TRAIN_SEQ, probe_every=PROBE_EVERY, seed=args.seed,
+                   lr=TRAIN_LR, log=log, device=dev)
+
     logs = []
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    vq_ops.LAUNCHES = 0
-    ep_ops.LAUNCHES.update(row_stats=0, graph_stats=0)
+    zero_counts()
     t0 = time.perf_counter()
-    params, opt_state, history = run(
-        cfg, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ,
-        probe_every=PROBE_EVERY, seed=args.seed, lr=TRAIN_LR,
-        log=logs.append, device=dev)
+    params, opt_state, history = train(logs.append)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"vnge_q": vq_ops.LAUNCHES, **ep_ops.LAUNCHES}
+    counts = read_counts(out)
     peak = torch.cuda.max_memory_allocated()
+    launches = {k: counts[k] for k in ("vnge_q", "row_stats", "graph_stats")}
     losses = [h["loss"] for h in history]
+    grad_norms = [h["grad_norm"] for h in history]
     step_ms = [h["step_ms"] for h in history]
     probes = [h for h in history if h["step"] % PROBE_EVERY == 0]
     ent = [h["attn_entropy_mean"] for h in probes]
@@ -1128,6 +1172,7 @@ def phase_train(args, torch, out, dev):
           f"{get_config(TRAIN_ARCH).n_layers}; batch {TRAIN_BATCH} x seq "
           f"{TRAIN_SEQ}, {TRAIN_STEPS} steps in {wall:.1f} s")
     print("  losses " + " ".join(f"{x:.4f}" for x in losses))
+    print("  grad norms " + " ".join(f"{x:.4g}" for x in grad_norms))
     med = float(np.median(step_ms))
     print(f"  step time (CUDA events around the step function): median "
           f"{med:.1f} ms, first {step_ms[0]:.1f} ms, every step "
@@ -1135,28 +1180,72 @@ def phase_train(args, torch, out, dev):
           + f"; {TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.1f} tokens/s; peak "
           f"torch.cuda.max_memory_allocated {peak / 1e9:.2f} GB")
     print(f"  attn_entropy_mean {ent}; routing_jsdist {jsd}; launches "
-          f"{launches}")
-    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise AssertionError(f"train path: losses {losses} are not finite "
-                             "or do not fall")
+          f"{counts}")
+    if not np.isfinite(losses + grad_norms).all():
+        raise AssertionError(f"train path: losses {losses} or grad norms "
+                             f"{grad_norms} are not finite")
+    if int(opt_state.step) != TRAIN_STEPS:
+        raise AssertionError(f"train path: optimizer step "
+                             f"{int(opt_state.step)} != {TRAIN_STEPS}")
     if len(jsd) != len(probes) - 1 or not np.isfinite(ent + jsd).all() \
             or min(jsd) < 0:
         raise AssertionError(f"train path: probes {ent} {jsd}")
     want = {"vnge_q": 3 * (len(probes) - 1), "row_stats": len(probes),
             "graph_stats": len(probes)}
-    if launches != want:
-        raise AssertionError(f"train path launches {launches} != {want}")
-    out["launches"].update(launches)
+    if launches != want or any(n for k, n in counts.items()
+                               if k not in want):
+        raise AssertionError(f"train path launches {counts}; want {want} "
+                             "and no other kernel")
 
-    # a checkpoint of the trained key/value projections, router and norm
-    # weights with their moments and the step restores bit-identical on
-    # the card (the whole 10.6 GB state would take minutes to compress)
+    # every leaf moved: each parameter off its init (drawn again from the
+    # seed) and both moments off 0. The loss of step 0's batch before and
+    # after training (the same tokens, so no batch-to-batch wander) is
+    # printed, not gated: under the init's fan-in quirk the clipped steps
+    # do not lower it at this width (ROADMAP Queue 3)
+    init = init_params(model_param_defs(cfg),
+                       torch.Generator(device=dev).manual_seed(args.seed),
+                       device=dev)
+    flat_i = flatten_names(init)
+    stale = [k for k, p in flatten_names(params).items()
+             if torch.equal(p, flat_i[k])]
+    for name, tree in (("mu", opt_state.mu), ("nu", opt_state.nu)):
+        stale += [f"{name}/{k}" for k, m in flatten_names(tree).items()
+                  if not bool(m.any())]
+    if stale:
+        raise AssertionError(f"train path: {TRAIN_STEPS} steps left "
+                             f"{len(stale)} leaves as initialized: "
+                             f"{stale[:8]}")
+    loss_fn = build_loss_fn(cfg)
+    batch0 = synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, args.seed, 0, dev)
+    with torch.no_grad():
+        l_init = float(loss_fn(init, batch0))
+        l_trained = float(loss_fn(params, batch0))
+        fwd_ms = cuda_ms(lambda: loss_fn(params, batch0), 3)
+    del init, flat_i
+    print(f"  {len(flatten_names(params))} parameter leaves and both "
+          f"moments of each moved; step 0's batch: loss {l_init:.6f} at "
+          f"init, {l_trained:.6f} after {TRAIN_STEPS} steps "
+          f"({l_trained - l_init:+.6f})")
+
+    # the probes' inputs at the last probe step, for the kernel rows
+    batch = synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, args.seed,
+                            (TRAIN_STEPS - 1) // PROBE_EVERY * PROBE_EVERY,
+                            dev)
+    out["train"] = (routing_graph(params, batch, cfg).weights.contiguous(),
+                    attention_probe_logits(params, batch["tokens"], cfg,
+                                           probe_len=min(TRAIN_SEQ, 128)))
+
+    # a checkpoint of the trained embedding and first expert stack
+    # (w_gate over all layers), the key/value projections, router and
+    # norm weights, with their moments and the step, restores
+    # bit-identical on the card
     def part(tree):
         b = tree["blocks"]["L0"]
-        return {"final_norm": tree["final_norm"], "blocks": {"L0": {
-            "ln1": b["ln1"], "ln2": b["ln2"],
-            "attn": {k: b["attn"][k] for k in ("wk", "wv")},
-            "moe": {"router": b["moe"]["router"]}}}}
+        return {"embed": tree["embed"], "final_norm": tree["final_norm"],
+                "blocks": {"L0": {
+                    "ln1": b["ln1"], "ln2": b["ln2"],
+                    "attn": {k: b["attn"][k] for k in ("wk", "wv")},
+                    "moe": {k: b["moe"][k] for k in ("router", "w_gate")}}}}
 
     tree = {"params": part(params), "opt": AdamWState(
         step=opt_state.step, mu=part(opt_state.mu), nu=part(opt_state.nu))}
@@ -1167,27 +1256,46 @@ def phase_train(args, torch, out, dev):
         c0 = time.perf_counter()
         path = save_checkpoint(tmp, TRAIN_STEPS, tree,
                                metadata={"arch": cfg.name})
+        c1 = time.perf_counter()
         back, manifest = restore_checkpoint(path, tree)
-        secs = time.perf_counter() - c0
+        torch.cuda.synchronize()
+        c2 = time.perf_counter()
+        on_disk = sum(f.stat().st_size for f in Path(path).iterdir())
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    from repro_torch.models.params import flatten_names
-
     a, b = flatten_names(tree), flatten_names(back)
     if list(a) != list(b) or manifest["step"] != TRAIN_STEPS or not all(
             b[k].device == a[k].device and torch.equal(a[k], b[k])
             for k in a):
         raise AssertionError("train path: the checkpoint did not restore "
                              "bit-identical")
-    n_el = sum(x.numel() for x in a.values())
-    print(f"  checkpoint round trip of {len(a)} arrays ({n_el / 1e6:.1f} M "
-          f"elements, step {int(opt_state.step)}) bit-identical in "
-          f"{secs:.1f} s")
-    batch = synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, args.seed,
-                            (TRAIN_STEPS - 1) // PROBE_EVERY * PROBE_EVERY,
-                            dev)
-    out["train"] = (cfg, params, batch)
-    del opt_state, tree, back
+    nbytes = sum(x.numel() * x.element_size() for x in a.values())
+    print(f"  checkpoint round trip of {len(a)} arrays ({nbytes / 1e9:.3f} "
+          f"GB, step {int(opt_state.step)}) bit-identical: save "
+          f"{c1 - c0:.1f} s, restore {c2 - c1:.1f} s, {on_disk / 1e9:.3f} "
+          f"GB on disk")
+    del tree, back, a, b
+
+    # determinism: a second run from the same seed repeats every loss
+    again = [h["loss"] for h in train(lambda *a: None)[2]]
+    if again != losses:
+        raise AssertionError(f"train path: a second run gave losses "
+                             f"{again} != {losses}")
+
+    # the step's split: forward alone (above) and the clip + AdamW update
+    # alone (in place, on stand-in gradients); the rest is the backward
+    # with its per-period recompute
+    opt_cfg = AdamWConfig(lr_peak=TRAIN_LR, total_steps=TRAIN_STEPS)
+    grads = map_tree(torch.ones_like, params)
+    upd_ms = cuda_ms(lambda: apply_update(params, grads, opt_state,
+                                          opt_cfg), 3)
+    print(f"  a second run repeated all {TRAIN_STEPS} losses bit for bit; "
+          f"step split: forward {fwd_ms:.1f} ms, clip + AdamW update "
+          f"{upd_ms:.1f} ms, backward with recompute (the rest of the "
+          f"median step) {med - fwd_ms - upd_ms:.1f} ms")
+    del params, opt_state, grads
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def train_rows(torch, out, dev):
@@ -1199,17 +1307,9 @@ def train_rows(torch, out, dev):
     from repro_torch.kernels.vnge_q import ops as vq_ops
     from repro_torch.kernels.vnge_q import parity as vq_parity
     from repro_torch.kernels.vnge_q.ref import vnge_q_stats_ref
-    from repro_torch.train.telemetry import (attention_probe_logits,
-                                             routing_graph)
 
-    cfg, params, batch = out.pop("train")
+    w, logits = out.pop("train")
     errs = out["errs"]
-    w = routing_graph(params, batch, cfg).weights.contiguous()
-    logits = attention_probe_logits(params, batch["tokens"], cfg,
-                                    probe_len=min(TRAIN_SEQ, 128))
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
     errs["vnge_q"] = max(errs["vnge_q"], vq_parity.compare(
         vq_ops.vnge_q_stats_cuda(w), vnge_q_stats_ref(w), "path vnge_q"))
     rows_in = ep_ops.row_stats_cuda(logits)

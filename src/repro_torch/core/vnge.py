@@ -17,8 +17,8 @@ from repro_torch.graphs.types import DenseGraph, EdgeList
 
 Graph = Union[DenseGraph, EdgeList]
 
-__all__ = ["c_from_s_total", "quadratic_q", "strength_stats",
-           "vnge_tilde"]
+__all__ = ["c_from_s_total", "h_tilde_from_stat_vector", "quadratic_q",
+           "strength_stats", "vnge_tilde"]
 
 
 def c_from_s_total(s_total: torch.Tensor) -> torch.Tensor:
@@ -52,12 +52,27 @@ def quadratic_q(g: Graph) -> torch.Tensor:
     return _lemma1_cq(s_total, sum_s2, sum_w2)[1]
 
 
-def h_tilde_from_stats(q, s_total, s_max) -> torch.Tensor:
-    """eq. (2) from (Q, S, s_max); H̃ = 0 on an empty graph (S = 0)."""
+def h_tilde_from_stats(q, s_total, s_max,
+                       empty_is_zero: bool = True) -> torch.Tensor:
+    """eq. (2) from (Q, S, s_max). H̃ = 0 on an empty graph (S = 0);
+    ``empty_is_zero=False`` keeps the unguarded -Q ln(1e-30) ≈ 69.08
+    there, as the reference's telemetry closings do
+    (`kernels/entropy_probe/ref.py::entropy_from_stats`,
+    `train/telemetry.py::_h_tilde_dense`)."""
     c = c_from_s_total(s_total)
-    arg = torch.clamp(2.0 * c * s_max, min=1e-30)
-    return torch.where(s_total > 0, -q * torch.log(arg),
-                       torch.zeros_like(q))
+    h = -q * torch.log(torch.clamp(2.0 * c * s_max, min=1e-30))
+    if not empty_is_zero:
+        return h
+    return torch.where(s_total > 0, h, torch.zeros_like(q))
+
+
+def h_tilde_from_stat_vector(stats: torch.Tensor,
+                             empty_is_zero: bool = True) -> torch.Tensor:
+    """H̃ from the (…, 4) ``[S, Σs², Σ_E w², s_max]`` vectors that the
+    ``vnge_q`` and ``entropy_probe`` kernels reduce to."""
+    s_total, sum_s2, sum_w2, s_max = stats.unbind(-1)
+    _, q = _lemma1_cq(s_total, sum_s2, sum_w2)
+    return h_tilde_from_stats(q, s_total, s_max, empty_is_zero)
 
 
 def vnge_tilde(g: Graph) -> torch.Tensor:

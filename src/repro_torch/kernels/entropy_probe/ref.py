@@ -9,13 +9,16 @@
   row max and exp-sum; then ``[ΣA², ΣA∘Aᵀ, Σ diag²]``, colsum(A) and
   diag(A). The CPU path of `ops.attention_graph_stats` runs them, and
   the card compares each kernel with its own.
-- `entropy_from_stats`: FINGER-H̃ (eq. 2) per head from the statistics.
+- `entropy_from_stats`: FINGER-H̃ (eq. 2) per head from the statistics,
+  through the one closing of Lemma 1 and eq. (2) in `core/vnge.py`.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from repro_torch.core.vnge import h_tilde_from_stat_vector
 
 
 def attention_graph_stats_ref(logits: torch.Tensor) -> torch.Tensor:
@@ -50,9 +53,6 @@ def graph_stats_ref(logits: torch.Tensor, rowmax: torch.Tensor,
 
 
 def entropy_from_stats(stats: torch.Tensor) -> torch.Tensor:
-    """FINGER-H̃ (eq. 2) per head from the 4-vector statistics."""
-    s_total, sum_s2, sum_w2, s_max = stats.unbind(-1)
-    safe = torch.where(s_total > 0, s_total, torch.ones_like(s_total))
-    c = torch.where(s_total > 0, 1.0 / safe, torch.zeros_like(s_total))
-    q = 1.0 - c * c * (sum_s2 + 2.0 * sum_w2)
-    return -q * torch.log(torch.clamp(2.0 * c * s_max, min=1e-30))
+    """FINGER-H̃ (eq. 2) per head from the 4-vector statistics; an empty
+    graph gives the reference's unguarded -ln(1e-30), not 0."""
+    return h_tilde_from_stat_vector(stats, empty_is_zero=False)

@@ -24,7 +24,9 @@ lane multiples and the per-edge payloads are not tiled onto endpoints
 state's tensors, as `stream_tick_fused` does, and returns a state over
 the same tensors.
 
-``LAUNCHES`` counts kernel launches (never plain-version calls).
+``LAUNCHES`` counts kernel launches by entry point (never plain-version
+calls): ``sparse_tick`` for `sparse_tick_fused`, ``sparse_tick_stacked``
+for `sparse_tick_fused_stacked`.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from repro_torch.graphs.types import GraphDelta
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.sparse_tick.ref import sparse_tick_ref
 
-LAUNCHES = 0
+LAUNCHES = {"sparse_tick": 0, "sparse_tick_stacked": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SCALARS = ("q", "s_total", "s_max")
@@ -63,10 +65,9 @@ def _check_slot_space(states: SparseStreamState,
             "(FingerService.grow_capacity)")
 
 
-def _launch(states: SparseStreamState, deltas: GraphDelta,
+def _launch(name: str, states: SparseStreamState, deltas: GraphDelta,
             exact_smax: bool, inplace: bool
             ) -> Tuple[torch.Tensor, SparseStreamState]:
-    global LAUNCHES
     lead = tuple(states.q.shape)
     n, m = states.n_slots, states.m_pad
     k = deltas.dw.shape[-1]
@@ -100,17 +101,15 @@ def _launch(states: SparseStreamState, deltas: GraphDelta,
              dist.data_ptr(), *(t.data_ptr() for t in outs), rows, n, m, k,
              j, int(bool(exact_smax)), dispatch.stream_handle(dev))
     dispatch.check_launch("sparse_tick", err)
-    LAUNCHES += 1
+    LAUNCHES[name] += 1
     if inplace:
         return dist, states
     return dist, SparseStreamState(*outs, layout=states.layout)
 
 
-def sparse_tick_fused(states: SparseStreamState, deltas: GraphDelta,
-                      exact_smax: bool = False, inplace: bool = False
-                      ) -> Tuple[torch.Tensor, SparseStreamState]:
-    """One batched sparse serving tick: (B,) JSdist scores + updated
-    states."""
+def _tick(name: str, states: SparseStreamState, deltas: GraphDelta,
+          exact_smax: bool, inplace: bool
+          ) -> Tuple[torch.Tensor, SparseStreamState]:
     _check_slot_space(states, deltas)
     if states.strengths.device.type == "cpu":
         dist, new = sparse_tick_ref(states, deltas, exact_smax=exact_smax)
@@ -119,7 +118,15 @@ def sparse_tick_fused(states: SparseStreamState, deltas: GraphDelta,
                 getattr(states, f).copy_(getattr(new, f))
             return dist, states
         return dist, new
-    return _launch(states, deltas, exact_smax, inplace)
+    return _launch(name, states, deltas, exact_smax, inplace)
+
+
+def sparse_tick_fused(states: SparseStreamState, deltas: GraphDelta,
+                      exact_smax: bool = False, inplace: bool = False
+                      ) -> Tuple[torch.Tensor, SparseStreamState]:
+    """One batched sparse serving tick: (B,) JSdist scores + updated
+    states."""
+    return _tick("sparse_tick", states, deltas, exact_smax, inplace)
 
 
 def sparse_tick_fused_stacked(states: SparseStreamState,
@@ -132,5 +139,4 @@ def sparse_tick_fused_stacked(states: SparseStreamState,
         raise ValueError(
             f"sparse_tick_fused_stacked expects (S, B) stacked states, "
             f"got q of shape {tuple(states.q.shape)}")
-    return sparse_tick_fused(states, deltas, exact_smax=exact_smax,
-                             inplace=inplace)
+    return _tick("sparse_tick_stacked", states, deltas, exact_smax, inplace)

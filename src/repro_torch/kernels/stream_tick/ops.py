@@ -20,7 +20,9 @@ counterpart of JAX's donation; the kernel completes every gather from
 a row before its first write to it, and writes only the elements whose
 value changes) and returns a state over the same tensors.
 
-``LAUNCHES`` counts kernel launches (never plain-version calls).
+``LAUNCHES`` counts kernel launches by entry point (never plain-version
+calls): ``stream_tick`` for `stream_tick_fused`, ``stream_tick_stacked``
+for `stream_tick_fused_stacked`.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from repro_torch.graphs.types import GraphDelta
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.stream_tick.ref import stream_tick_ref
 
-LAUNCHES = 0
+LAUNCHES = {"stream_tick": 0, "stream_tick_stacked": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STATE_FIELDS = ("q", "s_total", "s_max", "strengths", "node_mask")
@@ -71,9 +73,9 @@ def _copy_into(states: FingerState, dist: torch.Tensor,
     return dist, states
 
 
-def _launch(states: FingerState, deltas: GraphDelta, exact_smax: bool,
-            inplace: bool) -> Tuple[torch.Tensor, FingerState]:
-    global LAUNCHES
+def _launch(name: str, states: FingerState, deltas: GraphDelta,
+            exact_smax: bool, inplace: bool
+            ) -> Tuple[torch.Tensor, FingerState]:
     lead = tuple(states.q.shape)
     n = states.strengths.shape[-1]
     k = deltas.dw.shape[-1]
@@ -107,10 +109,19 @@ def _launch(states: FingerState, deltas: GraphDelta, exact_smax: bool,
              dist.data_ptr(), *(t.data_ptr() for t in outs), rows, n, k, j,
              int(bool(exact_smax)), dispatch.stream_handle(dev))
     dispatch.check_launch("stream_tick", err)
-    LAUNCHES += 1
+    LAUNCHES[name] += 1
     if inplace:
         return dist, states
     return dist, FingerState(*outs, layout=states.layout)
+
+
+def _tick(name: str, states: FingerState, deltas: GraphDelta,
+          exact_smax: bool, inplace: bool
+          ) -> Tuple[torch.Tensor, FingerState]:
+    if states.strengths.device.type == "cpu":
+        dist, new = stream_tick_ref(states, deltas, exact_smax=exact_smax)
+        return _copy_into(states, dist, new) if inplace else (dist, new)
+    return _launch(name, states, deltas, exact_smax, inplace)
 
 
 def stream_tick_fused(states: FingerState, deltas: GraphDelta,
@@ -118,10 +129,7 @@ def stream_tick_fused(states: FingerState, deltas: GraphDelta,
                       ) -> Tuple[torch.Tensor, FingerState]:
     """One batched serving tick: (B,) JSdist scores + updated states."""
     _check_layout("stream_tick_fused", states, deltas)
-    if states.strengths.device.type == "cpu":
-        dist, new = stream_tick_ref(states, deltas, exact_smax=exact_smax)
-        return _copy_into(states, dist, new) if inplace else (dist, new)
-    return _launch(states, deltas, exact_smax, inplace)
+    return _tick("stream_tick", states, deltas, exact_smax, inplace)
 
 
 def stream_tick_fused_stacked(states: FingerState, deltas: GraphDelta,
@@ -135,5 +143,4 @@ def stream_tick_fused_stacked(states: FingerState, deltas: GraphDelta,
         raise ValueError(
             f"stream_tick_fused_stacked expects (S, B) stacked states, "
             f"got q of shape {tuple(states.q.shape)}")
-    return stream_tick_fused(states, deltas, exact_smax=exact_smax,
-                             inplace=inplace)
+    return _tick("stream_tick_stacked", states, deltas, exact_smax, inplace)

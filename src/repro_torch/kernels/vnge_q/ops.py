@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.vnge import _lemma1_cq, h_tilde_from_stats
+from repro_torch.core.vnge import _lemma1_cq, h_tilde_from_stat_vector
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.vnge_q.ref import vnge_q_stats_ref
 
@@ -86,6 +86,4 @@ def vnge_tilde_dense(w: torch.Tensor,
                      node_mask: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
     """FINGER-H̃ (eq. 2) of a dense graph in one pass; 0 when empty."""
-    stats = vnge_q_stats(w, node_mask=node_mask)
-    _, q = _lemma1_cq(stats[0], stats[1], stats[2])
-    return h_tilde_from_stats(q, stats[0], stats[3])
+    return h_tilde_from_stat_vector(vnge_q_stats(w, node_mask=node_mask))

@@ -26,9 +26,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.jsdist import js_from_entropies
+from repro_torch.core.vnge import h_tilde_from_stat_vector
 from repro_torch.graphs.types import DenseGraph
 from repro_torch.kernels.entropy_probe.ops import attention_graph_entropy
-from repro_torch.kernels.entropy_probe.ref import entropy_from_stats
 from repro_torch.kernels.vnge_q.ops import vnge_q_stats
 from repro_torch.models.attention import qkv_project
 from repro_torch.models.layers import embed, rms_norm
@@ -111,8 +111,10 @@ def routing_graph(params, batch, cfg: ModelConfig,
 
 
 def _h_tilde_dense(g: DenseGraph) -> torch.Tensor:
-    """H̃ of a dense graph (eq. 2) through the ``vnge_q`` kernel."""
-    return entropy_from_stats(vnge_q_stats(g.weights))
+    """H̃ of a dense graph (eq. 2) through the ``vnge_q`` kernel; an
+    empty graph gives the reference's unguarded value, not 0."""
+    return h_tilde_from_stat_vector(vnge_q_stats(g.weights),
+                                    empty_is_zero=False)
 
 
 @dataclasses.dataclass

@@ -54,10 +54,11 @@ def cuda():
                                    (4096, 1024, 128, 8)])
 def test_stream_tick_matches_plain(cuda, shape, exact):
     states, deltas = st_parity.make_case(*shape, seed=3, device=cuda)
-    before = st_ops.LAUNCHES
+    before = dict(st_ops.LAUNCHES)
     got = st_ops.stream_tick_fused(states, deltas, exact_smax=exact)
     torch.cuda.synchronize()
-    assert st_ops.LAUNCHES == before + 1
+    assert st_ops.LAUNCHES == {**before,
+                               "stream_tick": before["stream_tick"] + 1}
     want = stream_tick_ref(states, deltas, exact_smax=exact)
     st_parity.compare(got, want)
 
@@ -82,7 +83,10 @@ def test_stream_tick_stacked_matches_plain(cuda):
              for s in range(3)]
     states = stack_states([c[0] for c in cases])
     deltas = stack_deltas([c[1] for c in cases])
+    before = dict(st_ops.LAUNCHES)
     got = st_ops.stream_tick_fused_stacked(states, deltas, exact_smax=True)
+    assert st_ops.LAUNCHES == {
+        **before, "stream_tick_stacked": before["stream_tick_stacked"] + 1}
     want = stream_tick_ref(states, deltas, exact_smax=True)
     assert got[0].shape == (3, 64)
     st_parity.compare(got, want, label="stream_tick_stacked")
@@ -159,10 +163,11 @@ def test_sparse_tick_matches_plain(cuda, shape, exact, inplace):
                      float(out[1].edge_weights[0].abs().sum())))
         return out
 
-    before = sp_ops.LAUNCHES
+    before = dict(sp_ops.LAUNCHES)
     sp_parity.check(tick, (states.map_tensors(torch.clone), d1, d2), exact,
                     f"sparse_tick {shape}")
-    assert sp_ops.LAUNCHES == before + 2
+    assert sp_ops.LAUNCHES == {**before,
+                               "sparse_tick": before["sparse_tick"] + 2}
     assert seen[0] == (0.0, 0.0)  # row 0 emptied: S' and its store zero
     assert seen[1][0] > 0.0  # and revived
 
@@ -172,7 +177,10 @@ def test_sparse_tick_stacked_matches_plain(cuda):
              for s in range(3)]
     states = stack_sparse_states([c[0] for c in cases])
     deltas = stack_deltas([c[1] for c in cases])
+    before = dict(sp_ops.LAUNCHES)
     got = sp_ops.sparse_tick_fused_stacked(states, deltas, exact_smax=True)
+    assert sp_ops.LAUNCHES == {
+        **before, "sparse_tick_stacked": before["sparse_tick_stacked"] + 1}
     want = sparse_tick_ref(states, deltas, exact_smax=True)
     assert got[0].shape == (3, 64)
     sp_parity.compare(got, want, label="sparse_tick_stacked")

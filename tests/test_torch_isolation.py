@@ -139,12 +139,14 @@ def test_cuda_requests_raise_without_cuda(monkeypatch):
 
 
 def test_cpu_tensors_run_the_plain_versions_without_launches():
-    before = (st_ops.LAUNCHES, ds_ops.LAUNCHES, sp_ops.LAUNCHES,
+    before = (dict(st_ops.LAUNCHES), ds_ops.LAUNCHES, dict(sp_ops.LAUNCHES),
               vq_ops.LAUNCHES, dict(ep_ops.LAUNCHES))
     states, deltas = st_parity.make_case(8, 40, 8, 2, seed=0,
                                          device="cpu")
     st_ops.stream_tick_fused(states, deltas)
     st_ops.stream_tick_fused(states, deltas, exact_smax=True, inplace=True)
+    st_ops.stream_tick_fused_stacked(states.map_tensors(lambda x: x[None]),
+                                     deltas.map_tensors(lambda x: x[None]))
     state, delta = ds_parity.make_case(32, 8, seed=0, device="cpu")
     ds_ops.delta_stats_fused(state, delta)
     from repro_torch.core.jsdist import jsdist_incremental
@@ -168,16 +170,20 @@ def test_cpu_tensors_run_the_plain_versions_without_launches():
 def test_kernel_entry_points_refuse_cpu_tensors():
     states, deltas = st_parity.make_case(8, 40, 8, 2, seed=0,
                                          device="cpu")
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        st_ops._launch(states, deltas, exact_smax=False, inplace=False)
+    for name in st_ops.LAUNCHES:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            st_ops._launch(name, states, deltas, exact_smax=False,
+                           inplace=False)
     state, delta = ds_parity.make_case(32, 8, seed=0, device="cpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
         ds_ops.delta_stats_sorted_cuda(*ds_ops.prepare_sorted_delta(
             state.strengths, delta))
     states, d1, _ = sp_parity.make_case(8, 40, 100, 8, 2, seed=0,
                                         device="cpu")
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        sp_ops._launch(states, d1, exact_smax=False, inplace=False)
+    for name in sp_ops.LAUNCHES:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            sp_ops._launch(name, states, d1, exact_smax=False,
+                           inplace=False)
     w, _ = vq_parity.make_case(40, seed=0, device="cpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
         vq_ops.vnge_q_stats_cuda(w)

@@ -27,6 +27,8 @@ from repro.kernels.entropy_probe import ops as jax_ep_ops
 from repro.kernels.entropy_probe.kernel import attention_graph_stats_pallas
 from repro.kernels.entropy_probe.ref import \
     attention_graph_stats_ref as jax_ep_oracle
+from repro.kernels.entropy_probe.ref import \
+    entropy_from_stats as jax_entropy_from_stats
 from repro.kernels.vnge_q import ops as jax_vq_ops
 from repro.kernels.vnge_q.ref import vnge_q_stats_ref as jax_vq_oracle
 from repro.models import transformer as jax_tf
@@ -80,6 +82,25 @@ def test_vnge_q_empty_graph_is_zero():
     w = torch.zeros((40, 40))
     assert vq_ops.vnge_q_stats(w).abs().max().item() == 0.0
     assert vq_ops.vnge_tilde_dense(w).item() == 0.0
+
+
+def test_telemetry_closings_keep_the_references_empty_graph_value():
+    """Both probes close Lemma 1 and eq. (2) through `core/vnge.py`; the
+    reference's telemetry closings leave an empty graph unguarded
+    (-ln(1e-30) ≈ 69.08), where `vnge_tilde_dense` gives 0."""
+    w = np.zeros((40, 40), np.float32)
+    want = float(jax_tel._h_tilde_dense(
+        JaxDenseGraph(weights=jnp.asarray(w), n_nodes=40)))
+    got = float(pt_tel._h_tilde_dense(
+        DenseGraph(weights=torch.from_numpy(w), n_nodes=40)))
+    assert want > 60.0
+    assert got == pytest.approx(want, rel=1e-6)
+    rng = np.random.default_rng(0)
+    stats = np.abs(rng.standard_normal((5, 4))).astype(np.float32)
+    stats[0] = 0.0
+    np.testing.assert_allclose(
+        ep_ref.entropy_from_stats(torch.from_numpy(stats)).numpy(),
+        np.asarray(jax_entropy_from_stats(jnp.asarray(stats))), rtol=1e-6)
 
 
 @pytest.mark.parametrize("bh,s", [(2, 128), (3, 256)])
