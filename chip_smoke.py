@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed S] [--batch B]
 
 Run from the root of a checkout; it imports `repro_torch` from
-``src/`` and never JAX or the JAX package. Six phases, each printing a
+``src/`` and never JAX or the JAX package. Seven phases, each printing a
 line of its own; any failure exits non-zero:
 
 1. build   — the hand-written kernels from ``src/repro_torch/csrc/``,
@@ -25,7 +25,10 @@ line of its own; any failure exits non-zero:
              n = 40, 1000 (ragged) and 8192, with and without a node
              mask; ``entropy_probe``'s row stats and graph stats at
              (BH, S) = (192, 128), (48, 1000) (ragged) and (192, 1024)
-             on causal -1e30-masked logits, each kernel on the same
+             on causal -1e30-masked logits; ``bsr_matvec`` on the cases
+             of `kernels/bsr_spmv/parity.py` (ragged n = 300 at b = 128,
+             b = 64, max_bpr = 1, a stripe of padding only, n = 32768),
+             each launched twice and bit-equal; each kernel on the same
              inputs as its plain version. Phase 2 first runs the parity
              discovery (`kernels/parity.py`) and fails by name if a
              kernel package is missing its ``parity.py`` or is not
@@ -87,17 +90,42 @@ line of its own; any failure exits non-zero:
              with their moments and step restores bit-identical on the
              card (seconds printed); a second run from the same seed
              repeats every loss bit for bit.
+7. offline — the offline spectral path: a planted partition of n = 2¹⁸
+             nodes in 256 contiguous communities (mean degree 16 inside,
+             0.05 across) drawn as an edge list from ``--seed``; G' moves
+             a contiguous 1 % of the nodes onto one hub community; Ḡ is
+             the two halved lists coalesced. For each graph
+             `edges_to_bsr` on the card (b = 128), λ_max by
+             `power_iteration_lmax_bsr` (the ``bsr_matvec`` kernel), Q,
+             `vnge_hat(g, lambda_max=λ)` and `vnge_tilde`; then JSdist
+             (Algorithm 1). Checks: each λ within rtol 1e-4 and each Ĥ
+             within 1e-4 of the matrix-free `power_iteration_lmax` from
+             the same start vector; finite values; H̃ ≤ Ĥ; launches =
+             iterations + 2 per graph. Prints the shapes, the BSR build
+             seconds, iterations, the median matvec against its bytes
+             bound and the power iteration's seconds. Then at n = 4096
+             (dense ER, G' through `apply_delta_dense`) `exact_vnge`,
+             `vnge_hat`, `jsdist_exact` and `jsdist_fast` on the card and
+             on the CPU (entropies within 1e-5, distances as divergences
+             within 1e-5), and the paper's Table 3 at
+             `benchmarks/table3_dos.py`'s setting (N = 250, X = 10 %, 10
+             instances, ``power_iters=50``): the top-2 detection rate,
+             card scores within 1e-4 of the CPU's (as divergences where
+             JSdiv < 1e-3).
 
-Every wrapper's launch count is set to 0 just before phases 3, 4, 5 and
-6 and read just after each; a kernel's ``launches`` in the kernels line
-is the sum over those paths. Kernel times are CUDA-event means of the
+Every wrapper's launch count is set to 0 just before phases 3, 4, 5, 6
+and 7 and read just after each path; a kernel's ``launches`` in the
+kernels line is the sum over those paths. Kernel times are CUDA-event means of the
 launch each path makes, at its shapes and inputs: ``stream_tick`` in
 place on a copy of a main-path tick's state restored before every call,
 ``sparse_tick`` in place (and out of place) on a copy of a sparse-path
 tick's state and slot-space delta, ``delta_stats`` on a single-stream
 update, ``stream_tick_fused_stacked`` out of place on phase 2's stacked
 case, ``vnge_q`` on the trained model's routing graph and the probe
-kernels on its probe logits (each also at phase 2's largest shape).
+kernels on its probe logits (each also at phase 2's largest shape),
+``bsr_matvec`` on phase 7's G with, as ``library_ms``, cuSPARSE's BSR
+matvec through ``torch.sparse_bsr_tensor(...) @ x`` on the same matrix
+without its padding slots (timed only; the port never calls it).
 Bounds come from the bytes each launch must move at the H100's 3.35 TB/s
 (the arithmetic bound is far below), counting only the state elements
 this run's delta changes, and the edge-store slots its gated lanes
@@ -133,8 +161,17 @@ TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = \
 TRAIN_STEPS, PROBE_EVERY, TRAIN_LR = 10, 2, 3e-3
 VNGE_NS = (40, 1000, 8192)
 PROBE_SHAPES = ((192, 128), (48, 1000), (192, 1024))
-CHECKED = ("delta_stats", "entropy_probe", "sparse_tick", "stream_tick",
-           "vnge_q")
+# the offline path: FINGER-Ĥ and Algorithm 1 on a 2^18-node planted
+# partition (256 contiguous communities, mean in-community degree 16,
+# cross-community 0.05) in b = 128 BSR; the burst rewires 1 % of the
+# nodes to a hub community
+OFF_N, OFF_COMM, OFF_DEG_IN, OFF_DEG_OUT, OFF_B = 1 << 18, 256, 16.0, 0.05, 128
+OFF_BURST, OFF_BURST_DEG = 0.01, 16
+DENSE_N, DENSE_DEG = 4096, 16.0  # exact H and jsdist_exact, dense ER
+# Table 3 at the reference benchmark's setting (benchmarks/table3_dos.py)
+DOS_N, DOS_X, DOS_INSTANCES, DOS_ITERS = 250, 0.10, 10, 50
+CHECKED = ("bsr_spmv", "delta_stats", "entropy_probe", "sparse_tick",
+           "stream_tick", "vnge_q")
 SP_FIELDS = ("q", "s_total", "s_max", "strengths", "node_mask",
              "edge_weights")
 
@@ -554,6 +591,7 @@ def phase_kernels(args, torch, out, dev):
     out["sparse_stacked"] = (states, d1)
     out["errs"] = errs
     phase_kernels_train(args, errs, dev)
+    phase_kernels_bsr(args, torch, errs, dev)
 
 
 def phase_kernels_train(args, errs, dev):
@@ -593,6 +631,31 @@ def phase_kernels_train(args, errs, dev):
               f"max_abs_err={e1:.3e}, graph_stats {e2:.3e}; closed "
               f"statistics vs the oracle {e3:.3e}")
         del x, rows
+
+
+def phase_kernels_bsr(args, torch, errs, dev):
+    """Phase 2, the offline path's kernel: ``bsr_matvec`` against its
+    plain version on `kernels/bsr_spmv/parity.py`'s cases, and a second
+    launch that repeats the first bit for bit."""
+    from repro_torch.kernels.bsr_spmv import ops as bs_ops
+    from repro_torch.kernels.bsr_spmv import parity as bs_parity
+    from repro_torch.kernels.bsr_spmv.ref import bsr_matvec_ref
+
+    errs["bsr_matvec"] = 0.0
+    for label, (n, b, kind) in bs_parity.CASES.items():
+        m, x = bs_parity.make_case(n, b, seed=args.seed + n, device=dev,
+                                   kind=kind)
+        got = bs_ops.bsr_matvec_cuda(m.values, m.col_ids, x)
+        err = bs_parity.compare(got, bsr_matvec_ref(m, x), label)
+        again = bs_ops.bsr_matvec_cuda(m.values, m.col_ids, x)
+        if not torch.equal(got, again):
+            raise AssertionError(f"bsr_matvec {label}: a second launch "
+                                 "gave other bits")
+        errs["bsr_matvec"] = max(errs["bsr_matvec"], err)
+        print(f"  bsr_matvec {label} (n_rb, max_bpr)="
+              f"{tuple(m.col_ids.shape)}: max_abs_err={err:.3e}, a second "
+              "launch bit-equal")
+        del m, x, got, again
 
 
 def phase_serve(args, torch, out, dev):
@@ -1371,6 +1434,324 @@ def train_rows(torch, out, dev):
         print_row(rows[-1])
     return rows
 
+def offline_edges(seed: int):
+    """The offline phase's three graphs as numpy edge lists (lo, hi, w):
+    G, a planted partition of OFF_N nodes drawn as an edge list; G', G
+    with a planted burst (a contiguous block of OFF_BURST·n nodes loses
+    its edges and each of its nodes links to OFF_BURST_DEG random nodes
+    of one hub community's 1024 ids, away from the block); and Ḡ's two
+    halved lists, concatenated (duplicates are summed when the graph is
+    built)."""
+    import numpy as np
+
+    from repro_torch.graphs.generators import random_geometric_community_edges
+
+    size = OFF_N / OFF_COMM
+    lo, hi = random_geometric_community_edges(
+        OFF_N, OFF_COMM, OFF_DEG_IN / (size - 1),
+        OFF_DEG_OUT / (OFF_N - size), seed=seed)
+    w = np.ones(lo.shape, np.float32)
+    rng = np.random.default_rng(seed + 1)
+    k = int(OFF_BURST * OFF_N)
+    r0 = int(rng.integers(0, OFF_N // 2 - k))
+    hub0 = int(rng.integers(OFF_N // 2, OFF_N - 1024))
+    kept = ~(((lo >= r0) & (lo < r0 + k)) | ((hi >= r0) & (hi < r0 + k)))
+    src = np.repeat(np.arange(r0, r0 + k), OFF_BURST_DEG)
+    dst = hub0 + rng.integers(0, 1024, src.size)
+    key = np.unique(src.astype(np.int64) * OFF_N + dst)
+    lo2 = np.r_[lo[kept], (key // OFF_N).astype(np.int32)]
+    hi2 = np.r_[hi[kept], (key % OFF_N).astype(np.int32)]
+    w2 = np.ones(lo2.shape, np.float32)
+    bar = (np.r_[lo, lo2], np.r_[hi, hi2], np.r_[0.5 * w, 0.5 * w2])
+    return {"G": (lo, hi, w), "G2": (lo2, hi2, w2), "Gbar": bar}
+
+
+def device_edge_list(edges, n: int, dev):
+    """A coalesced `EdgeList` on the card from numpy (lo, hi, w)."""
+    import torch
+
+    from repro_torch.graphs.types import EdgeList, coalesce_edges
+
+    lo, hi, w = coalesce_edges(*(torch.from_numpy(a).to(dev) for a in edges),
+                               n)
+    return EdgeList(senders=lo, receivers=hi, weights=w,
+                    mask=torch.ones_like(w), n_nodes=n)
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median milliseconds of ``fn`` on the card, each call between its
+    own pair of CUDA events."""
+    import numpy as np
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bsr_bytes(m) -> tuple:
+    """Bytes one matvec must move, (this matrix's data, as stored): the
+    real blocks (those with a nonzero entry) or every stored block,
+    padding slots included, each read once, with col_ids, x read once
+    and y written once. The first is the bound: the work of a sparse
+    product depends on its data, and the padding adds nothing to y."""
+    real = int(m.values.ne(0).flatten(2).any(-1).sum())
+    rest = m.col_ids.numel() * 4 + 2 * 4 * m.n
+    b2 = m.block * m.block * 4
+    return real * b2 + rest, m.values.numel() * 4 + rest
+
+
+def phase_offline(args, torch, out, dev):
+    """Phase 7: the offline spectral path (FINGER-Ĥ, Algorithm 1, exact
+    VNGE) through the ``bsr_matvec`` kernel."""
+    import numpy as np
+
+    from repro_torch.core import quadratic_q, vnge_hat, vnge_tilde
+    from repro_torch.core.jsdist import js_from_entropies
+    from repro_torch.graphs.spectral import power_iteration_lmax
+    from repro_torch.kernels.bsr_spmv import ops as bs_ops
+    from repro_torch.kernels.bsr_spmv.ref import bsr_density, edges_to_bsr
+
+    t0 = time.perf_counter()
+    edges = offline_edges(args.seed)
+    print(f"  graphs drawn on the host in {time.perf_counter() - t0:.1f} s: "
+          f"n={OFF_N}, {OFF_COMM} communities, edges G {edges['G'][0].size}, "
+          f"G' {edges['G2'][0].size}")
+    res, mats = {}, {}
+    zero_counts()
+    for name, e in edges.items():
+        torch.cuda.synchronize()
+        b0 = time.perf_counter()
+        m = edges_to_bsr(*e, OFF_N, b=OFF_B, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - b0
+        g = device_edge_list(e, OFF_N, dev)
+        info = {}
+        p0 = time.perf_counter()
+        lam = bs_ops.power_iteration_lmax_bsr(m, info=info)
+        lam_f = float(lam)
+        pi_s = time.perf_counter() - p0
+        q = float(quadratic_q(g))
+        h_hat = float(vnge_hat(g, lambda_max=lam))
+        h_tilde = float(vnge_tilde(g))
+        res[name] = dict(lam=lam_f, q=q, h_hat=h_hat, h_tilde=h_tilde,
+                         iters=info["iterations"], build_s=build_s,
+                         pi_s=pi_s, edges=int(g.weights.numel()))
+        mats[name] = (m, g)
+    launches = read_counts(out)["bsr_matvec"]
+    jsd = float(js_from_entropies(torch.tensor(res["Gbar"]["h_hat"]),
+                                  torch.tensor(res["G"]["h_hat"]),
+                                  torch.tensor(res["G2"]["h_hat"])))
+    want = sum(r["iters"] + 2 for r in res.values())
+    if launches != want:
+        raise AssertionError(f"bsr_matvec launched {launches} times; the "
+                             f"three power iterations need {want}")
+    for name, (m, g) in mats.items():
+        r = res[name]
+        lam_mf = power_iteration_lmax(g)
+        h_mf = float(vnge_hat(g, lambda_max=lam_mf))
+        lam_mf = float(lam_mf)
+        x = torch.randn(m.n, generator=torch.Generator().manual_seed(1)) \
+            .to(dev)
+        mv_ms = median_ms(lambda: bs_ops.bsr_matvec_cuda(m.values, m.col_ids,
+                                                         x), 20)
+        real, stored = bsr_bytes(m)
+        vals = [r["lam"], r["q"], r["h_hat"], r["h_tilde"], lam_mf, h_mf]
+        print(f"  {name}: edges {r['edges']}, max_bpr {m.col_ids.shape[1]}, "
+              f"bsr_density {bsr_density(m):.6f}, values "
+              f"{m.values.numel() * 4 / 1e9:.3f} GB, BSR build "
+              f"{r['build_s']:.3f} s; power iteration {r['iters']} "
+              f"iterations in {r['pi_s']:.3f} s, median matvec "
+              f"{mv_ms:.4f} ms (bound {real / HBM_BYTES_PER_S * 1e3:.4f} ms "
+              f"for the {real} B of real blocks, "
+              f"{stored / HBM_BYTES_PER_S * 1e3:.4f} ms for the {stored} B "
+              f"stored), matvec share "
+              f"{(r['iters'] + 2) * mv_ms / 1e3 / r['pi_s']:.4f} (the rest: "
+              f"host syncs, launch gaps, vector ops)")
+        print(f"    lambda_max {r['lam']:.9g} (matrix-free {lam_mf:.9g}), "
+              f"Q {r['q']:.9g}, H_hat {r['h_hat']:.7f} (matrix-free "
+              f"{h_mf:.7f}), H_tilde {r['h_tilde']:.7f}")
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"offline {name}: non-finite {vals}")
+        if abs(r["lam"] - lam_mf) > 1e-4 * abs(lam_mf) \
+                or abs(r["h_hat"] - h_mf) > 1e-4:
+            raise AssertionError(
+                f"offline {name}: kernel route lambda {r['lam']} H_hat "
+                f"{r['h_hat']} vs matrix-free {lam_mf} {h_mf}")
+        if not r["h_tilde"] <= r["h_hat"]:
+            raise AssertionError(f"offline {name}: H_tilde {r['h_tilde']} "
+                                 f"> H_hat {r['h_hat']}")
+        del x
+    if not np.isfinite(jsd):
+        raise AssertionError(f"offline JSdist {jsd}")
+    print(f"  JSdist(G, G') by Algorithm 1 = {jsd:.7f}; bsr_matvec "
+          f"launches {launches} (iterations + 2 per graph); every lambda "
+          f"and H_hat within rtol 1e-4 / atol 1e-4 of the matrix-free "
+          f"route, H_tilde <= H_hat for each graph")
+    out["offline"] = mats.pop("G")[0]
+    del mats
+    phase_offline_dense(args, torch, dev)
+    phase_offline_dos(args, torch, dev)
+
+
+def phase_offline_dense(args, torch, dev):
+    """Phase 7, dense part: exact H and jsdist_exact beside Ĥ and
+    jsdist_fast at n = DENSE_N, on the card and on the CPU."""
+    import numpy as np
+
+    from repro_torch.core import (exact_vnge, jsdist_exact, jsdist_fast,
+                                  vnge_hat)
+    from repro_torch.graphs.generators import erdos_renyi
+    from repro_torch.graphs.types import GraphDelta, apply_delta_dense
+
+    g = erdos_renyi(DENSE_N, DENSE_DEG / (DENSE_N - 1), seed=args.seed)
+    rng = np.random.default_rng(args.seed + 2)
+    target = int(rng.integers(0, DENSE_N))
+    bots = rng.choice(np.setdiff1d(np.arange(DENSE_N), [target]),
+                      DENSE_N // 100, replace=False)
+    w_old = g.weights[bots, target].numpy()
+    delta = GraphDelta.from_arrays(bots, np.full(bots.size, target),
+                                   1.0 - w_old, w_old, n_nodes=DENSE_N)
+    got = {}
+    for where, dv in (("card", dev), ("cpu", torch.device("cpu"))):
+        a = g.to(dv)
+        b = apply_delta_dense(a, delta.to(dv))
+        row = {}
+        for label, fn in (("exact_vnge", lambda: exact_vnge(a)),
+                          ("vnge_hat", lambda: vnge_hat(a)),
+                          ("jsdist_exact", lambda: jsdist_exact(a, b)),
+                          ("jsdist_fast", lambda: jsdist_fast(a, b))):
+            t0 = time.perf_counter()
+            v = float(fn())
+            row[label] = (v, time.perf_counter() - t0)
+        got[where] = row
+    card, cpu = got["card"], got["cpu"]
+    print(f"  dense n={DENSE_N} (ER, mean degree {DENSE_DEG:g}; G' adds "
+          f"{DENSE_N // 100} edges to one target through apply_delta_dense): "
+          + "; ".join(f"{k} card {card[k][0]:.7f} in {card[k][1]:.3f} s, "
+                      f"CPU {cpu[k][0]:.7f} in {cpu[k][1]:.3f} s"
+                      for k in card))
+    for k in ("exact_vnge", "vnge_hat"):
+        if abs(card[k][0] - cpu[k][0]) > 1e-5:
+            raise AssertionError(f"dense {k}: card {card[k][0]} vs CPU "
+                                 f"{cpu[k][0]}")
+    for k in ("jsdist_exact", "jsdist_fast"):  # compared as divergences
+        if abs(card[k][0] ** 2 - cpu[k][0] ** 2) > 1e-5:
+            raise AssertionError(f"dense {k}: card {card[k][0]} vs CPU "
+                                 f"{cpu[k][0]}")
+    if not card["exact_vnge"][0] >= card["vnge_hat"][0] - 1e-3:
+        raise AssertionError(f"dense: H_hat {card['vnge_hat'][0]} above "
+                             f"H {card['exact_vnge'][0]}")
+
+
+def phase_offline_dos(args, torch, dev):
+    """Phase 7, Table 3: the top-2 detection rate of a planted DoS by
+    jsdist_fast at the reference benchmark's setting, card against CPU."""
+    import numpy as np
+
+    from repro_torch.core import jsdist_fast
+    from repro_torch.graphs.streams import dos_attack_sequence
+
+    hits = {"card": 0, "cpu": 0}
+    secs = {"card": 0.0, "cpu": 0.0}
+    worst = worst_dist = 0.0
+    for inst in range(DOS_INSTANCES):
+        seq, attack_at = dos_attack_sequence(n=DOS_N, attack_frac=DOS_X,
+                                             seed=inst)
+        scores = {}
+        for where, dv in (("card", dev), ("cpu", torch.device("cpu"))):
+            gs = [g.to(dv) for g in seq.graphs]
+            t0 = time.perf_counter()
+            scores[where] = np.array([
+                float(jsdist_fast(gs[t], gs[t + 1], power_iters=DOS_ITERS))
+                for t in range(len(gs) - 1)])
+            secs[where] += time.perf_counter() - t0
+            hits[where] += int(attack_at in np.argsort(scores[where])[-2:])
+        # scores compared as distances, and as divergences where JSdiv <
+        # 1e-3: the square root amplifies rounding near 0
+        a, b = scores["card"], scores["cpu"]
+        small = np.minimum(a, b) ** 2 < 1e-3
+        diff = np.where(small, np.abs(a * a - b * b), np.abs(a - b))
+        worst = max(worst, float(diff.max()))
+        worst_dist = max(worst_dist, float(np.abs(a - b).max()))
+        if not np.isfinite(scores["card"]).all():
+            raise AssertionError(f"DoS instance {inst}: scores "
+                                 f"{scores['card']}")
+    print(f"  Table 3 (N={DOS_N}, X={DOS_X:.0%}, {DOS_INSTANCES} instances, "
+          f"jsdist_fast power_iters={DOS_ITERS}): top-2 detection rate card "
+          f"{hits['card'] / DOS_INSTANCES:.0%}, CPU "
+          f"{hits['cpu'] / DOS_INSTANCES:.0%}; scores card vs CPU max |diff| "
+          f"{worst:.3e} (bound 1e-4; as JSdiv where JSdiv < 1e-3; as "
+          f"distances alone {worst_dist:.3e}); {secs['card']:.2f} s on the "
+          f"card, {secs['cpu']:.2f} s on the CPU")
+    if worst > 1e-4:
+        raise AssertionError(f"DoS scores: card vs CPU differ by {worst}")
+
+
+def offline_rows(torch, out, dev):
+    """The bsr_matvec row of the kernels line: the launch the offline
+    path makes, on G's BSR matrix."""
+    import warnings
+
+    from repro_torch.kernels.bsr_spmv import ops as bs_ops
+    from repro_torch.kernels.bsr_spmv import parity as bs_parity
+    from repro_torch.kernels.bsr_spmv.ref import bsr_matvec_ref
+
+    m = out.pop("offline")
+    errs = out["errs"]
+    x = torch.randn(m.n, generator=torch.Generator().manual_seed(2)).to(dev)
+    y = bs_ops.bsr_matvec_cuda(m.values, m.col_ids, x)
+    errs["bsr_matvec"] = max(errs["bsr_matvec"], bs_parity.compare(
+        y, bsr_matvec_ref(m, x), "path bsr_matvec"))
+    ms = cuda_ms(lambda: bs_ops.bsr_matvec_cuda(m.values, m.col_ids, x), 20)
+    plain = cuda_ms(lambda: bsr_matvec_ref(m, x), 3)
+    real_bytes, stored_bytes = bsr_bytes(m)
+    # the library call: cuSPARSE's BSR matvec through
+    # torch.sparse_bsr_tensor on the same matrix, padding slots dropped
+    # (a padding slot repeats column 0 in its stripe)
+    real = m.values.ne(0).flatten(2).any(-1)
+    crow = torch.zeros(real.shape[0] + 1, dtype=torch.int64, device=dev)
+    crow[1:] = real.sum(1).cumsum(0)
+    col = m.col_ids[real].long()
+    vals = m.values[real]
+    lib_bytes = vals.numel() * 4 + col.numel() * 8 + crow.numel() * 8 \
+        + 2 * 4 * m.n
+    library = None
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            a = torch.sparse_bsr_tensor(crow, col, vals, (m.n, m.n))
+            lib_err = float((a @ x - y).abs().max())
+            library = cuda_ms(lambda: a @ x, 20)
+        print(f"  library: torch.sparse_bsr_tensor(...) @ x on the "
+              f"{vals.shape[0]} real blocks ({lib_bytes} B to move): "
+              f"{library:.4f} ms, max |diff| vs the kernel {lib_err:.3e}")
+    except Exception as e:  # the yardstick only; the port never calls it
+        print(f"  library: torch.sparse_bsr_tensor(...) @ x refused: "
+              f"{type(e).__name__}: {e}")
+    print(f"  bsr_matvec on G: (n_rb, max_bpr, b)={tuple(m.values.shape[:3])}"
+          f": the kernel reads {stored_bytes} B (every stored slot, "
+          f"padding included; {stored_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms "
+          f"at 3.35 TB/s), the data needs {real_bytes} B (the real blocks; "
+          f"the bound)")
+    row = {"name": "bsr_matvec", "route": "cuda",
+           "source": "src/repro_torch/csrc/bsr_spmv.cu",
+           "replaces": "src/repro/kernels/bsr_spmv/kernel.py:37",
+           "launches": out["launches"]["bsr_matvec"],
+           "max_abs_err": errs["bsr_matvec"], "ms": ms, "plain_ms": plain,
+           "bound_ms": real_bytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "library_ms": library}
+    print_row(row)
+    return [row]
+
 
 def print_row(r: dict) -> None:
     """One kernel's row of the kernels line, for a reader."""
@@ -1442,6 +1823,15 @@ def main() -> int:
         phase = "train timing"
         print("vnge_q and entropy_probe times at the train path's inputs:")
         rows += train_rows(torch, out, dev)
+        phase = "offline"
+        t_off = time.perf_counter()
+        print("phase 7 offline path (FINGER-H_hat, Algorithm 1, exact VNGE; "
+              "bsr_matvec):")
+        phase_offline(args, torch, out, dev)
+        phase = "offline timing"
+        print("bsr_matvec times at the offline path's inputs:")
+        rows += offline_rows(torch, out, dev)
+        print(f"  phase 7 took {time.perf_counter() - t_off:.1f} s")
     except Exception:  # report the phase, then fail the run
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED")

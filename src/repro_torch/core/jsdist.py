@@ -1,13 +1,19 @@
-"""Jensen–Shannon graph distance with FINGER-H̃: Algorithm 2 and its
-batch counterpart.
+"""Jensen–Shannon graph distance: Algorithms 1 (Fast) and 2 (Incremental).
 
-The port's copy of the H̃ part of `repro.core.jsdist`:
+The port's copy of `repro.core.jsdist`:
 
-  JSdiv(G, G')  = H̃(Ḡ) - ½ [H̃(G) + H̃(G')],   Ḡ = (G ⊕ G')/2
+  JSdiv(G, G')  = H(Ḡ) - ½ [H(G) + H(G')],   Ḡ = (G ⊕ G')/2
   JSdist(G, G') = sqrt(max(JSdiv, 0))
 
-`jsdist_incremental` runs Algorithm 2 — two Theorem-2 updates, ΔG/2 for
-Ḡ and ΔG for G' — and works unchanged on a stacked (B, ·) batch.
+`jsdist_fast` (Algorithm 1) takes the three entropies with FINGER-Ĥ and
+`jsdist_exact` with the exact H. `jsdist_incremental` runs Algorithm 2 —
+two Theorem-2 updates, ΔG/2 for Ḡ and ΔG for G' — and works unchanged
+on a stacked (B, ·) batch.
+
+`average_graph` of two edge lists goes through the dense form, as in
+the reference: `jsdist_fast` on edge lists is O(n²) in memory. A caller
+with a large graph forms Ḡ's edge list itself (`coalesce_edges` of the
+two halved lists).
 """
 from __future__ import annotations
 
@@ -17,13 +23,15 @@ import torch
 
 from repro_torch.core.incremental import update_state
 from repro_torch.core.state import FingerState
-from repro_torch.core.vnge import vnge_tilde
-from repro_torch.graphs.types import DenseGraph, EdgeList, GraphDelta
+from repro_torch.core.vnge import exact_vnge, vnge_hat, vnge_tilde
+from repro_torch.graphs.types import DenseGraph, EdgeList, GraphDelta, \
+    on_device
+from repro_torch.kernels.dispatch import Device
 
 Graph = Union[DenseGraph, EdgeList]
 
-__all__ = ["average_graph", "js_distance", "jsdist_incremental",
-           "jsdist_stream", "jsdist_tilde"]
+__all__ = ["average_graph", "js_distance", "jsdist_exact", "jsdist_fast",
+           "jsdist_incremental", "jsdist_stream", "jsdist_tilde"]
 
 
 def average_graph(g: Graph, g2: Graph) -> DenseGraph:
@@ -57,6 +65,21 @@ def js_distance(g: Graph, g2: Graph,
     gbar = average_graph(g, g2)
     return js_from_entropies(entropy_fn(gbar), entropy_fn(g),
                              entropy_fn(g2))
+
+
+def jsdist_fast(g: Graph, g2: Graph, power_iters: int = 100, x0=None,
+                device: Device = None) -> torch.Tensor:
+    """Algorithm 1: FINGER-JSdist (Fast), linear complexity via Ĥ; every
+    power iteration starts from ``x0`` (default: seed 0)."""
+    g, g2 = on_device(g, device), on_device(g2, device)
+    return js_distance(g, g2, lambda x: vnge_hat(x, power_iters=power_iters,
+                                                 x0=x0))
+
+
+def jsdist_exact(g: Graph, g2: Graph, device: Device = None) -> torch.Tensor:
+    """Exact JSdist via full eigendecompositions (the O(n³) reference)."""
+    g, g2 = on_device(g, device), on_device(g2, device)
+    return js_distance(g, g2, exact_vnge)
 
 
 def jsdist_tilde(g: Graph, g2: Graph) -> torch.Tensor:

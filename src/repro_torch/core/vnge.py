@@ -1,30 +1,50 @@
-"""Von Neumann graph entropy proxies: Lemma-1 Q and FINGER-H̃.
+"""Von Neumann graph entropy: exact H, Lemma-1 Q, FINGER-Ĥ, FINGER-H̃.
 
-The port's copy of the eigen-free part of `repro.core.vnge`:
+The port's copy of `repro.core.vnge`:
 
+  H(G)  = -Σ_i λ_i ln λ_i,   λ_i eigenvalues of L_N = L / trace(L)
   Q     = 1 - c² (Σ_i s_i² + 2 Σ_E w_ij²),  c = 1/trace(L)   [Lemma 1]
+  Ĥ(G)  = -Q ln λ_max                                         [eq. (1)]
   H̃(G)  = -Q ln(2 c s_max)                                    [eq. (2)]
 
-Every function accepts graphs with leading batch axes.
+The eigen-free functions accept graphs with leading batch axes;
+`exact_vnge` and `vnge_hat` take one graph and a ``device=`` (``None``:
+where the graph lies; ``cuda`` without a card raises).
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
-from repro_torch.graphs.types import DenseGraph, EdgeList
+from repro_torch.graphs.spectral import exact_eigvals_ln, \
+    power_iteration_lmax
+from repro_torch.graphs.types import DenseGraph, EdgeList, on_device
+from repro_torch.kernels.dispatch import Device
 
 Graph = Union[DenseGraph, EdgeList]
 
-__all__ = ["c_from_s_total", "h_tilde_from_stat_vector", "quadratic_q",
-           "strength_stats", "vnge_tilde"]
+__all__ = ["c_from_s_total", "exact_vnge", "h_tilde_from_stat_vector",
+           "quadratic_q", "strength_stats", "vnge_hat", "vnge_tilde"]
 
 
 def c_from_s_total(s_total: torch.Tensor) -> torch.Tensor:
     """c = 1/trace(L) with the empty-graph convention c(0) = 0."""
     safe = torch.where(s_total > 0, s_total, torch.ones_like(s_total))
     return torch.where(s_total > 0, 1.0 / safe, torch.zeros_like(s_total))
+
+
+def _xlogx(x: torch.Tensor) -> torch.Tensor:
+    """x ln x with the 0 ln 0 = 0 convention."""
+    safe = torch.where(x > 0, x, 1.0)
+    return torch.where(x > 0, x * torch.log(safe), 0.0)
+
+
+def exact_vnge(g: Graph, device: Device = None) -> torch.Tensor:
+    """Exact H(G) = -Σ λ_i ln λ_i via full eigendecomposition (O(n³))."""
+    # clamp: eigvalsh leaves noise below zero
+    ev = torch.clamp(exact_eigvals_ln(on_device(g, device)), min=0.0)
+    return -_xlogx(ev).sum()
 
 
 def strength_stats(g: Graph):
@@ -50,6 +70,27 @@ def quadratic_q(g: Graph) -> torch.Tensor:
     """Lemma 1: Q = 1 - c² (Σ s_i² + 2 Σ_E w_ij²)."""
     s_total, sum_s2, sum_w2, _ = strength_stats(g)
     return _lemma1_cq(s_total, sum_s2, sum_w2)[1]
+
+
+def vnge_hat(g: Graph, lambda_max: Optional[torch.Tensor] = None,
+             power_iters: int = 100, tol: float = 1e-7, x0=None,
+             device: Device = None) -> torch.Tensor:
+    """FINGER-Ĥ (eq. 1): Ĥ = -Q ln λ_max, λ_max via power iteration
+    (`power_iteration_lmax`, seed 0, or from ``x0``) unless given.
+
+    O(n + m): Q is a single pass, λ_max costs ``power_iters`` matvecs.
+    """
+    g = on_device(g, device)
+    s_total, sum_s2, sum_w2, _ = strength_stats(g)
+    _, q = _lemma1_cq(s_total, sum_s2, sum_w2)
+    if lambda_max is None:
+        lambda_max = power_iteration_lmax(g, num_iters=power_iters, tol=tol,
+                                          x0=x0)
+    lam = torch.clamp(torch.as_tensor(lambda_max, device=q.device),
+                      1e-30, 1.0)
+    # Empty graph (trace L = 0): L_N is undefined and H = 0 by convention;
+    # without the guard the clipped log yields ≈69 nats.
+    return torch.where(s_total > 0, -q * torch.log(lam), 0.0)
 
 
 def h_tilde_from_stats(q, s_total, s_max,

@@ -92,3 +92,37 @@ def random_geometric_community(n: int, n_comm: int, p_in: float, p_out: float,
     w = np.triu(upper, 1).astype(np.float64)
     w = w + w.T
     return _to_graphs(w)
+
+
+def random_geometric_community_edges(n: int, n_comm: int, p_in: float,
+                                     p_out: float, seed: int = 0):
+    """`random_geometric_community`'s planted partition drawn as an edge
+    list, for graphs whose (n, n) matrix does not fit on the host.
+
+    Communities are contiguous, as there (sorted labels drawn from
+    ``default_rng(seed)``). The edge counts are binomial over the
+    in-community and cross-community pairs with probabilities ``p_in``
+    and ``p_out``; each edge's endpoints are drawn uniformly inside its
+    community (across communities), self loops dropped and each pair kept
+    once, so the draw is not the dense generator's bit for bit and holds
+    slightly fewer edges than the binomial counts. Returns ``(lo, hi)``
+    int32 numpy arrays, lo < hi, ascending.
+    """
+    rng = np.random.default_rng(seed)
+    labels = np.sort(rng.integers(0, n_comm, n))
+    sizes = np.bincount(labels, minlength=n_comm).astype(np.int64)
+    starts = np.cumsum(sizes) - sizes
+    pairs_in = sizes * (sizes - 1) // 2
+    m_in = rng.binomial(int(pairs_in.sum()), p_in) if pairs_in.sum() else 0
+    comm = rng.choice(n_comm, m_in, p=pairs_in / max(pairs_in.sum(), 1))
+    a_in = starts[comm] + rng.integers(0, sizes[comm])
+    b_in = starts[comm] + rng.integers(0, sizes[comm])
+    m_out = rng.binomial(n * (n - 1) // 2 - int(pairs_in.sum()), p_out)
+    a_out = rng.integers(0, n, m_out)
+    b_out = rng.integers(0, n, m_out)
+    cross = labels[a_out] != labels[b_out]
+    a = np.concatenate([a_in, a_out[cross]])
+    b = np.concatenate([b_in, b_out[cross]])
+    keep = a != b
+    key = np.unique(np.minimum(a, b)[keep] * n + np.maximum(a, b)[keep])
+    return (key // n).astype(np.int32), (key % n).astype(np.int32)

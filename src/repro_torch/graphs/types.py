@@ -9,6 +9,9 @@ The port's copy of `repro.graphs.types`, with the same semantics:
   optional node join/leave slots (Theorem 2's ΔG), and, once a
   `repro_torch.core.sparse.SlotMap` has translated it into slot space,
   the edge-store slot of each lane (``edge_slots``).
+- ``apply_delta_dense`` : G ⊕ ΔG on the dense form (the oracle path).
+- ``coalesce_edges`` : an edge list with duplicates summed, the form
+  that Σ_E w² and the BSR layout need.
 
 Node ids are int32 and weights float32 at the public surface, as in the
 JAX package. Every field may carry leading batch axes: a stacked
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.graphs.layout import NodeLayout
+from repro_torch.kernels.dispatch import Device, resolve_device
 
 F32 = torch.float32
 
@@ -93,6 +97,16 @@ def scatter_nodes(x: torch.Tensor, ids: torch.Tensor, src: torch.Tensor,
                             reduce=reduce, include_self=True)
 
 
+def on_device(obj, device: Device):
+    """``obj`` (anything with ``.to``) moved to ``device``. ``None``
+    leaves it where its tensors lie; ``cuda`` without a card raises
+    (`resolve_device`). The offline entry points take their ``device=``
+    through here."""
+    if device is None:
+        return obj
+    return obj.to(resolve_device(device))
+
+
 def _resolve_layout_args(n_nodes: int, n_pad, node_mask, layout, kind: str):
     resolved, mask = NodeLayout.resolve(n_nodes, n_pad, node_mask,
                                         layout=layout, kind=kind)
@@ -125,6 +139,12 @@ class DenseGraph:
 
     def strengths(self) -> torch.Tensor:
         return self.masked_weights().sum(-1)
+
+    def to(self, device) -> "DenseGraph":
+        return DenseGraph(
+            weights=self.weights.to(device), n_nodes=self.n_nodes,
+            node_mask=None if self.node_mask is None
+            else self.node_mask.to(device))
 
     def pad_to(self, n_pad: Union[int, NodeLayout]) -> "DenseGraph":
         """Embed into an n_pad layout; new slots are inactive."""
@@ -397,3 +417,61 @@ def gate_delta_by_nodes(delta: GraphDelta,
         * take_nodes(node_mask, delta.receivers)
     return dataclasses.replace(delta,
                                mask=delta.mask * gate.to(delta.mask.dtype))
+
+
+def apply_delta_dense(g: DenseGraph, delta: GraphDelta) -> DenseGraph:
+    """G' = G ⊕ ΔG on one dense graph (the oracle path).
+
+    Joins activate before the edge changes, edges are gated by the
+    post-join mask (and by the layout: an out-of-range endpoint adds
+    nothing), leaves deactivate after them and zero the left nodes' rows
+    and columns.
+    """
+    has_slots = delta.node_ids is not None
+    mask = g.node_mask
+    if has_slots and mask is None:
+        mask = torch.ones((g.n_nodes,), dtype=g.weights.dtype,
+                          device=g.weights.device)
+    if has_slots:
+        mask = node_mask_after_joins(mask, delta)
+    if mask is not None:
+        delta = gate_delta_by_nodes(delta, mask)
+    n = g.n_nodes
+    ok = in_range(delta.senders, n) & in_range(delta.receivers, n)
+    s = torch.where(ok, delta.senders, 0).long()
+    r = torch.where(ok, delta.receivers, 0).long()
+    dwm = torch.where(ok, delta.dw * delta.mask, 0.0).to(g.weights.dtype)
+    w = g.weights.clone()
+    w.index_put_((s, r), dwm, accumulate=True)
+    w.index_put_((r, s), dwm, accumulate=True)
+    if has_slots:
+        mask = node_mask_after_leaves(mask, delta)
+    if mask is not None:
+        w = w * mask[:, None] * mask[None, :]
+    return DenseGraph(weights=w, n_nodes=n, node_mask=mask)
+
+
+def coalesce_edges(senders: torch.Tensor, receivers: torch.Tensor,
+                   weights: torch.Tensor, n: int):
+    """One (lo, hi, w) entry per undirected edge, lo < hi, in ascending
+    (lo, hi) order, on the inputs' device.
+
+    Duplicate (i, j) lanes are summed in lane order, lanes that are self
+    loops or touch an id outside ``[0, n)`` are dropped, and so are
+    edges whose summed weight is 0. This is the physical merge that
+    Σ_E w² needs (duplicates only sum correctly in the strengths) and
+    the input form of `kernels.bsr_spmv.edges_to_bsr`.
+    """
+    s = senders.long()
+    r = receivers.long()
+    w = weights.to(F32)
+    keep = in_range(s, n) & in_range(r, n) & (s != r) & (w != 0)
+    lo = torch.minimum(s, r)[keep]
+    hi = torch.maximum(s, r)[keep]
+    key, inv = torch.unique(lo * n + hi, sorted=True, return_inverse=True)
+    total = torch.zeros(key.shape, dtype=F32, device=w.device)
+    total.index_add_(0, inv, w[keep])
+    live = total != 0
+    key = key[live]
+    return ((key // n).to(torch.int32), (key % n).to(torch.int32),
+            total[live])

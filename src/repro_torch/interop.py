@@ -7,7 +7,8 @@ the same dict plus ``edge_weights`` and its `SparseLayout`'s
 ``(n_slots, m_pad, generation)``; a `GraphDelta` as a dict of its
 arrays (``edge_slots`` included when it has them) plus ``n_nodes``. A
 `SlotMap` crosses as its JSON (`SlotMap.to_json` / `from_json`, the same
-format in both packages). Model parameters cross as a nested dict of
+format in both packages). A `BsrMatrix` crosses as ``{"values",
+"col_ids"}`` plus its ``(n, n_orig)``. Model parameters cross as a nested dict of
 numpy arrays with the reference's keys (the JAX parameter pytree after
 ``np.asarray`` on each leaf), and an AdamW state as
 ``{"step", "mu", "nu"}`` of the same. This is how the tests feed the
@@ -26,6 +27,7 @@ from repro_torch.core.sparse import SparseLayout, SparseStreamState
 from repro_torch.core.state import FingerState
 from repro_torch.graphs.layout import NodeLayout
 from repro_torch.graphs.types import GraphDelta
+from repro_torch.kernels.bsr_spmv.ref import BsrMatrix
 from repro_torch.kernels.dispatch import Device, resolve_device
 from repro_torch.models.params import map_tree
 from repro_torch.optim.adamw import AdamWState
@@ -143,3 +145,24 @@ def opt_state_to_numpy(state: AdamWState) -> dict:
     return {"step": state.step.detach().cpu().numpy(),
             "mu": params_to_numpy(state.mu),
             "nu": params_to_numpy(state.nu)}
+
+
+def bsr_from_numpy(arrays: Mapping[str, np.ndarray], n: int, n_orig: int,
+                   device: Device = None) -> BsrMatrix:
+    """``{"values": (n_rb, max_bpr, b, b), "col_ids": (n_rb, max_bpr)}``
+    of numpy arrays (a reference `BsrMatrix`'s fields) → the port's
+    `BsrMatrix` on ``device`` (``None`` is CUDA)."""
+    device = resolve_device(device)
+    return BsrMatrix(
+        values=torch.from_numpy(np.array(arrays["values"], np.float32))
+        .to(device),
+        col_ids=torch.from_numpy(np.array(arrays["col_ids"], np.int32))
+        .to(device),
+        n=int(n), n_orig=int(n_orig))
+
+
+def bsr_to_numpy(m: BsrMatrix) -> Tuple[dict, int, int]:
+    """The port's `BsrMatrix` → (``{"values", "col_ids"}`` of numpy
+    arrays, n, n_orig)."""
+    return ({"values": m.values.detach().cpu().numpy(),
+             "col_ids": m.col_ids.detach().cpu().numpy()}, m.n, m.n_orig)

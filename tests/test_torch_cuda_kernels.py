@@ -11,7 +11,9 @@ Tolerances are those of the parity modules (`kernels/*/parity.py`):
 atol 1e-5 with rtol 1e-5 on state and statistics, exact masks, and the
 score compared as a divergence (see `stream_tick.parity`); ``vnge_q``
 at rtol 3e-5 and ``entropy_probe`` at rtol 5e-4 (atol 1e-5), the
-reference's own kernel-test tolerances.
+reference's own kernel-test tolerances; ``bsr_spmv`` at atol 1e-5 with
+rtol 1e-5, and λ_max of its power iteration at rtol 1e-5 against the
+plain version's from the same start vector.
 """
 import dataclasses
 
@@ -22,6 +24,9 @@ import torch
 from repro_torch.core.jsdist import jsdist_stream
 from repro_torch.core.sparse import stack_sparse_states
 from repro_torch.engine.stream import stack_deltas, stack_states
+from repro_torch.kernels.bsr_spmv import ops as bs_ops
+from repro_torch.kernels.bsr_spmv import parity as bs_parity
+from repro_torch.kernels.bsr_spmv.ref import bsr_matvec_ref
 from repro_torch.kernels.delta_stats import ops as ds_ops
 from repro_torch.kernels.delta_stats import parity as ds_parity
 from repro_torch.kernels.delta_stats.ref import delta_stats_sorted_ref
@@ -260,3 +265,45 @@ def test_entropy_probe_repeats_bit_for_bit(cuda):
     a = ep_ops.attention_graph_stats(x)
     b = ep_ops.attention_graph_stats(x)
     torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("label", list(bs_parity.CASES))
+def test_bsr_matvec_matches_plain(cuda, label):
+    """The phase-2 cases: ragged n, b = 64, max_bpr = 1, a stripe of
+    padding only, and the large case."""
+    n, b, kind = bs_parity.CASES[label]
+    m, x = bs_parity.make_case(n, b, seed=2, device=cuda, kind=kind)
+    before = dict(bs_ops.LAUNCHES)
+    got = bs_ops.bsr_matvec(m, x)
+    torch.cuda.synchronize()
+    assert bs_ops.LAUNCHES == {"bsr_matvec": before["bsr_matvec"] + 1}
+    bs_parity.compare(got, bsr_matvec_ref(m, x), label)
+
+
+def test_bsr_matvec_repeats_bit_for_bit(cuda):
+    m, x = bs_parity.make_case(4096, 128, seed=3, device=cuda)
+    a, b = bs_ops.bsr_matvec(m, x), bs_ops.bsr_matvec(m, x)
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_bsr_matvec_refuses_by_name(cuda):
+    m, x = bs_parity.make_case(300, 128, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="b in"):
+        bs_ops.bsr_matvec_cuda(m.values[:, :, :32, :32].contiguous(),
+                               m.col_ids, x[:96].contiguous())
+    with pytest.raises(TypeError, match="float32"):
+        bs_ops.bsr_matvec_cuda(m.values, m.col_ids, x.double())
+    with pytest.raises(ValueError, match="not contiguous"):
+        bs_ops.bsr_matvec_cuda(m.values.transpose(2, 3), m.col_ids, x)
+    with pytest.raises(TypeError, match="int32"):
+        bs_ops.bsr_matvec_cuda(m.values, m.col_ids.long(), x)
+
+
+def test_bsr_power_iteration_launches_and_matches_plain(cuda):
+    m, _ = bs_parity.make_case(4096, 64, seed=4, device=cuda)
+    before = bs_ops.LAUNCHES["bsr_matvec"]
+    info = {}
+    got = bs_ops.power_iteration_lmax_bsr(m, info=info)
+    assert bs_ops.LAUNCHES["bsr_matvec"] - before == info["iterations"] + 2
+    want = bs_ops.power_iteration_lmax_bsr(m.to("cpu"))
+    torch.testing.assert_close(got.cpu(), want, atol=0, rtol=1e-5)

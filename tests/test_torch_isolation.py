@@ -17,12 +17,15 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import repro_torch
 from repro_torch.graphs.generators import erdos_renyi
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.bsr_spmv import ops as bs_ops
+from repro_torch.kernels.bsr_spmv import parity as bs_parity
 from repro_torch.kernels.delta_stats import ops as ds_ops
 from repro_torch.kernels.delta_stats import parity as ds_parity
 from repro_torch.kernels.entropy_probe import ops as ep_ops
@@ -61,7 +64,13 @@ def test_import_every_submodule_loads_no_jax_and_no_repro():
               "repro_torch.train.fault_tolerance",
               "repro_torch.launch.train", "repro_torch.kernels.parity",
               "repro_torch.kernels.vnge_q.ops",
-              "repro_torch.kernels.entropy_probe.ops")
+              "repro_torch.kernels.entropy_probe.ops",
+              "repro_torch.kernels.bsr_spmv.ops",
+              "repro_torch.kernels.bsr_spmv.parity",
+              "repro_torch.graphs.spectral", "repro_torch.graphs.streams",
+              "repro_torch.core.bounds", "repro_torch.core.directed",
+              "repro_torch.core.higher_order",
+              "repro_torch.baselines.deltacon")
     assert set(ported) <= set(names)
     code = ("import importlib, sys\n"
             f"for m in {names!r}: importlib.import_module(m)\n"
@@ -135,12 +144,37 @@ def test_cuda_requests_raise_without_cuda(monkeypatch):
         synthetic_batch(cfg, 1, 8, seed=0, step=0)
     with pytest.raises(RuntimeError, match="is_available"):
         interop.params_from_numpy({"w": [1.0]})
+    # the offline path: a CPU graph runs where it lies unless the caller
+    # asks for the card; a layout built from numpy defaults to the card
+    from repro_torch.core import (exact_vnge, jsdist_exact, jsdist_fast,
+                                  vnge_hat)
+    from repro_torch.graphs.spectral import power_iteration_lmax
+    from repro_torch.kernels.bsr_spmv.ref import dense_to_bsr, edges_to_bsr
+
+    for fn in (exact_vnge, vnge_hat, power_iteration_lmax):
+        with pytest.raises(RuntimeError, match="is_available"):
+            fn(g, device="cuda")
+        assert fn(g).device.type == "cpu"
+    for fn in (jsdist_fast, jsdist_exact):
+        with pytest.raises(RuntimeError, match="is_available"):
+            fn(g, g, device="cuda")
+    w = g.weights.numpy()
+    with pytest.raises(RuntimeError, match="is_available"):
+        dense_to_bsr(w, b=64)
+    with pytest.raises(RuntimeError, match="is_available"):
+        edges_to_bsr([0], [1], [1.0], 8, b=64)
+    with pytest.raises(RuntimeError, match="is_available"):
+        interop.bsr_from_numpy({"values": np.zeros((1, 1, 64, 64)),
+                                "col_ids": np.zeros((1, 1))}, 64, 8)
+    m = dense_to_bsr(w, b=64, device="cpu")
+    with pytest.raises(RuntimeError, match="is_available"):
+        bs_ops.power_iteration_lmax_bsr(m, device="cuda")
     assert dispatch.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_cpu_tensors_run_the_plain_versions_without_launches():
     before = (dict(st_ops.LAUNCHES), ds_ops.LAUNCHES, dict(sp_ops.LAUNCHES),
-              vq_ops.LAUNCHES, dict(ep_ops.LAUNCHES))
+              vq_ops.LAUNCHES, dict(ep_ops.LAUNCHES), dict(bs_ops.LAUNCHES))
     states, deltas = st_parity.make_case(8, 40, 8, 2, seed=0,
                                          device="cpu")
     st_ops.stream_tick_fused(states, deltas)
@@ -163,8 +197,11 @@ def test_cpu_tensors_run_the_plain_versions_without_launches():
     vq_ops.vnge_tilde_dense(w)
     ep_ops.attention_graph_entropy(ep_parity.make_case(2, 40, seed=0,
                                                        device="cpu"))
+    m, x = bs_parity.make_case(300, 128, seed=0, device="cpu")
+    bs_ops.bsr_matvec(m, x)
+    bs_ops.power_iteration_lmax_bsr(m, num_iters=5)
     assert (st_ops.LAUNCHES, ds_ops.LAUNCHES, sp_ops.LAUNCHES,
-            vq_ops.LAUNCHES, ep_ops.LAUNCHES) == before
+            vq_ops.LAUNCHES, ep_ops.LAUNCHES, bs_ops.LAUNCHES) == before
 
 
 def test_kernel_entry_points_refuse_cpu_tensors():
@@ -192,12 +229,15 @@ def test_kernel_entry_points_refuse_cpu_tensors():
         ep_ops.row_stats_cuda(x)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ep_ops.graph_stats_cuda(x, x[:, 0], x[:, 0])
+    m, x = bs_parity.make_case(300, 128, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bs_ops.bsr_matvec_cuda(m.values, m.col_ids, x)
 
 
 def test_parity_discovery_covers_every_kernel_and_fails_by_name(tmp_path):
     assert sorted(discover_parity_modules()) == [
-        "delta_stats", "entropy_probe", "sparse_tick", "stream_tick",
-        "vnge_q"]
+        "bsr_spmv", "delta_stats", "entropy_probe", "sparse_tick",
+        "stream_tick", "vnge_q"]
     for name in ("has_parity", "no_parity"):
         (tmp_path / name).mkdir()
         (tmp_path / name / "ops.py").write_text("")
