@@ -27,9 +27,17 @@ line of its own; any failure exits non-zero:
              (BH, S) = (192, 128), (48, 1000) (ragged) and (192, 1024)
              on causal -1e30-masked logits; ``bsr_matvec`` on the cases
              of `kernels/bsr_spmv/parity.py` (ragged n = 300 at b = 128,
-             b = 64, max_bpr = 1, a stripe of padding only, n = 32768),
-             each launched twice and bit-equal; each kernel on the same
-             inputs as its plain version. Phase 2 first runs the parity
+             b = 64, max_bpr = 1, a stripe of padding only, strongly
+             uneven stripe counts from max_bpr down to 0, n = 32768),
+             each launched twice and bit-equal; the stress cases of both
+             tick parity modules (``kind="stress"``: a hub looped on
+             every lane so that its segment spans all 2k endpoints, a
+             star across the lanes, joins and leaves on touched nodes,
+             all-masked rows without node slots beside live ones, an
+             empty snap and a revive; k = 37, 128, 200 and 1024), both
+             ``exact_smax`` values, each with a second launch and an
+             in-place launch bit-equal to the first; each kernel on the
+             same inputs as its plain version. Phase 2 first runs the parity
              discovery (`kernels/parity.py`) and fails by name if a
              kernel package is missing its ``parity.py`` or is not
              checked here.
@@ -135,6 +143,17 @@ the last is the ``kernels`` JSON object; the last line is the device
 JSON object. Scores and state are compared at the tolerances stated in
 the parity modules (atol 1e-5, rtol 1e-5; the score as a divergence;
 ``vnge_q`` rtol 3e-5 and ``entropy_probe`` rtol 5e-4, atol 1e-5).
+
+The kernels' designs are in their sources' header notes. The tick body
+(`csrc/tick_kernel.cuh`, shared by ``stream_tick`` and ``sparse_tick``)
+runs one stream a warp, eight a block, with warp shuffles and
+``__syncwarp`` only: the keys sorted in registers up to k = 128 (in the
+warp's shared memory above), the row merged against the sorted segment
+heads; the ``stream_tick`` row's printout gives its resident streams per
+SM from CUDA's occupancy calculator. ``bsr_matvec`` reads each stripe's
+real blocks only (the layout's per-stripe ``counts``) and launches the
+stripes longest first; its printout states the bytes it reads, which
+must be the real blocks' bytes.
 """
 from __future__ import annotations
 
@@ -530,6 +549,24 @@ def phase_kernels(args, torch, out, dev):
                       f"inplace={inplace}: max_abs_err={err:.3e}")
                 del work, got
         del states, deltas, want
+    for label, shape in st_parity.STRESS.items():
+        states, deltas = st_parity.make_case(*shape, seed=args.seed,
+                                             device=dev, kind="stress")
+        for exact in (False, True):
+            got = st_ops.stream_tick_fused(states, deltas, exact_smax=exact)
+            err = st_parity.compare(got, stream_tick_ref(
+                states, deltas, exact_smax=exact), f"stream_tick {label}")
+            errs["stream_tick"] = max(errs["stream_tick"], err)
+            again = st_ops.stream_tick_fused(states, deltas,
+                                             exact_smax=exact)
+            inplace = st_ops.stream_tick_fused(
+                states.map_tensors(torch.clone), deltas, exact_smax=exact,
+                inplace=True)
+            check_bits(torch, f"stream_tick {label}", got, again, inplace)
+            print(f"  stream_tick stress {label} B,n,k,j={shape} "
+                  f"exact_smax={exact}: max_abs_err={err:.3e}; a second "
+                  "launch and in place bit-equal")
+        del states, deltas, got, again, inplace
     cases = [st_parity.make_case(2048, N_PAD, K_PAD, J_PAD,
                                  seed=args.seed + s, device=dev)
              for s in range(3)]
@@ -576,6 +613,23 @@ def phase_kernels(args, torch, out, dev):
                       f"max_abs_err={err:.3e}")
                 del case
         del states, d1, d2
+    for label, shape in sp_parity.STRESS.items():
+        states, d1, d2 = sp_parity.make_case(*shape, seed=args.seed,
+                                             device=dev, kind="stress")
+        for exact in (False, True):
+            err = sp_parity.check(sparse(False), (states, d1, d2), exact,
+                                  f"sparse_tick {label}")
+            errs["sparse_tick"] = max(errs["sparse_tick"], err)
+            got = sp_ops.sparse_tick_fused(states, d1, exact_smax=exact)
+            again = sp_ops.sparse_tick_fused(states, d1, exact_smax=exact)
+            inplace = sp_ops.sparse_tick_fused(
+                states.map_tensors(torch.clone), d1, exact_smax=exact,
+                inplace=True)
+            check_bits(torch, f"sparse_tick {label}", got, again, inplace)
+            print(f"  sparse_tick stress {label} B,n_slots,m_pad,k,j="
+                  f"{shape} exact_smax={exact}, 2 ticks: max_abs_err="
+                  f"{err:.3e}; a second launch and in place bit-equal")
+        del states, d1, d2, got, again, inplace
     cases = [sp_parity.make_case(SP_BATCH // 2, SP_SLOTS, SP_M_PAD, K_PAD,
                                  J_PAD, seed=args.seed + s, device=dev)
              for s in range(2)]
@@ -592,6 +646,17 @@ def phase_kernels(args, torch, out, dev):
     out["errs"] = errs
     phase_kernels_train(args, errs, dev)
     phase_kernels_bsr(args, torch, errs, dev)
+
+
+def check_bits(torch, label, got, *others) -> None:
+    """Raise unless each of ``others`` (dist, state) equals ``got`` bit
+    for bit."""
+    want = [got[0], *got[1].tensors().values()]
+    for other in others:
+        if not all(torch.equal(a, b) for a, b in zip(
+                want, [other[0], *other[1].tensors().values()])):
+            raise AssertionError(f"{label}: launches on the same inputs "
+                                 "gave other bits")
 
 
 def phase_kernels_train(args, errs, dev):
@@ -645,16 +710,17 @@ def phase_kernels_bsr(args, torch, errs, dev):
     for label, (n, b, kind) in bs_parity.CASES.items():
         m, x = bs_parity.make_case(n, b, seed=args.seed + n, device=dev,
                                    kind=kind)
-        got = bs_ops.bsr_matvec_cuda(m.values, m.col_ids, x)
+        got = bs_ops.bsr_matvec_cuda(m.values, m.col_ids, m.counts, x)
         err = bs_parity.compare(got, bsr_matvec_ref(m, x), label)
-        again = bs_ops.bsr_matvec_cuda(m.values, m.col_ids, x)
+        again = bs_ops.bsr_matvec_cuda(m.values, m.col_ids, m.counts, x)
         if not torch.equal(got, again):
             raise AssertionError(f"bsr_matvec {label}: a second launch "
                                  "gave other bits")
         errs["bsr_matvec"] = max(errs["bsr_matvec"], err)
         print(f"  bsr_matvec {label} (n_rb, max_bpr)="
-              f"{tuple(m.col_ids.shape)}: max_abs_err={err:.3e}, a second "
-              "launch bit-equal")
+              f"{tuple(m.col_ids.shape)}, stripe counts "
+              f"{int(m.counts.min())}..{int(m.counts.max())}: "
+              f"max_abs_err={err:.3e}, a second launch bit-equal")
         del m, x, got, again
 
 
@@ -1029,6 +1095,7 @@ def sparse_rows(torch, out):
     """The sparse_tick rows of the kernels line: the in-place launch the
     sparse path makes on a main-path tick's inputs, and the stacked form
     over S·B rows on the phase-2 stacked case."""
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.sparse_tick import ops as sp_ops
     from repro_torch.kernels.sparse_tick import parity as sp_parity
     from repro_torch.kernels.sparse_tick.ref import sparse_tick_ref
@@ -1059,6 +1126,9 @@ def sparse_rows(torch, out):
         shape = tuple(snap.strengths.shape[:-1]) + (
             snap.n_slots, snap.m_pad, deltas.dw.shape[-1],
             deltas.node_ids.shape[-1])
+        res = dispatch.residency("sparse_tick", *shape[-2:])
+        print(f"  {name}: resident streams per SM {res['streams_per_sm']} "
+              f"({res['registers']} registers a thread)")
         print(f"  {name} rows,n_slots,m_pad,k,j={shape}: in place "
               f"{ms:.4f} ms (bound {b_in / HBM_BYTES_PER_S * 1e3:.6f} ms, "
               f"{b_in} B), out of place {ms_out:.4f} ms (bound "
@@ -1085,6 +1155,7 @@ def kernel_rows(torch, out):
     import dataclasses
 
     from repro_torch.core.incremental import gate_delta_for_update
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.delta_stats import ops as ds_ops
     from repro_torch.kernels.delta_stats import parity as ds_parity
     from repro_torch.kernels.delta_stats.ref import delta_stats_sorted_ref
@@ -1128,9 +1199,15 @@ def kernel_rows(torch, out):
         for f in ("senders", "receivers", "dw", "w_old", "mask")})
     ms_masked = cuda_ms(tick(masked), 10, setup=restore)
     ms_k32 = cuda_ms(tick(first32), 10, setup=restore)
+    res = dispatch.residency("stream_tick", k, j)
     print(f"  stream_tick in place, B={b} n_pad={n} k_pad={k} j_pad={j}: "
           f"{changed} state elements changed; every lane masked "
-          f"{ms_masked:.4f} ms; first 32 lanes only {ms_k32:.4f} ms")
+          f"{ms_masked:.4f} ms; first 32 lanes only {ms_k32:.4f} ms; "
+          f"resident streams per SM {res['streams_per_sm']} "
+          f"({res['blocks_per_sm']} blocks of {res['streams_per_block']} "
+          f"streams, one warp a stream; {res['registers']} registers a "
+          f"thread, {st_ops.stream_tick_smem_bytes(k, j)} B of shared "
+          f"memory a block)")
     del work, masked, first32
     rows = [{
         "name": "stream_tick", "route": "cuda",
@@ -1561,8 +1638,9 @@ def phase_offline(args, torch, out, dev):
         lam_mf = float(lam_mf)
         x = torch.randn(m.n, generator=torch.Generator().manual_seed(1)) \
             .to(dev)
-        mv_ms = median_ms(lambda: bs_ops.bsr_matvec_cuda(m.values, m.col_ids,
-                                                         x), 20)
+        order = bs_ops.stripe_order(m.counts, m.col_ids.shape[1])
+        mv_ms = median_ms(lambda: bs_ops.bsr_matvec_cuda(
+            m.values, m.col_ids, m.counts, x, order), 20)
         real, stored = bsr_bytes(m)
         vals = [r["lam"], r["q"], r["h_hat"], r["h_tilde"], lam_mf, h_mf]
         print(f"  {name}: edges {r['edges']}, max_bpr {m.col_ids.shape[1]}, "
@@ -1708,10 +1786,15 @@ def offline_rows(torch, out, dev):
     m = out.pop("offline")
     errs = out["errs"]
     x = torch.randn(m.n, generator=torch.Generator().manual_seed(2)).to(dev)
-    y = bs_ops.bsr_matvec_cuda(m.values, m.col_ids, x)
+    order = bs_ops.stripe_order(m.counts, m.col_ids.shape[1])
+
+    def kernel():
+        return bs_ops.bsr_matvec_cuda(m.values, m.col_ids, m.counts, x, order)
+
+    y = kernel()
     errs["bsr_matvec"] = max(errs["bsr_matvec"], bs_parity.compare(
         y, bsr_matvec_ref(m, x), "path bsr_matvec"))
-    ms = cuda_ms(lambda: bs_ops.bsr_matvec_cuda(m.values, m.col_ids, x), 20)
+    ms = cuda_ms(kernel, 20)
     plain = cuda_ms(lambda: bsr_matvec_ref(m, x), 3)
     real_bytes, stored_bytes = bsr_bytes(m)
     # the library call: cuSPARSE's BSR matvec through
@@ -1737,11 +1820,23 @@ def offline_rows(torch, out, dev):
     except Exception as e:  # the yardstick only; the port never calls it
         print(f"  library: torch.sparse_bsr_tensor(...) @ x refused: "
               f"{type(e).__name__}: {e}")
-    print(f"  bsr_matvec on G: (n_rb, max_bpr, b)={tuple(m.values.shape[:3])}"
-          f": the kernel reads {stored_bytes} B (every stored slot, "
-          f"padding included; {stored_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms "
-          f"at 3.35 TB/s), the data needs {real_bytes} B (the real blocks; "
-          f"the bound)")
+    # what the kernel reads: each stripe's counts real slots (values and
+    # col ids), the counts and the order, x once; it writes y
+    n_rb, max_bpr, b = m.values.shape[:3]
+    blocks = int(m.counts.sum())
+    if blocks != int(real.sum()):
+        raise AssertionError(f"bsr_matvec: the counts name {blocks} real "
+                             f"blocks, the values hold {int(real.sum())}")
+    read_values = blocks * b * b * 4
+    read_bytes = read_values + blocks * 4 + 2 * n_rb * 4 + 2 * 4 * m.n
+    print(f"  bsr_matvec on G: (n_rb, max_bpr, b)={(n_rb, max_bpr, b)}: the "
+          f"kernel reads the {blocks} real blocks only, {read_values} B of "
+          f"values (the real blocks' bytes: {int(real.sum()) * b * b * 4} "
+          f"B) and {read_bytes} B in all, "
+          f"{read_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms at 3.35 TB/s, "
+          f"{read_bytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved; "
+          f"{stored_bytes} B are stored with the padding; the bound counts "
+          f"{real_bytes} B (every col id)")
     row = {"name": "bsr_matvec", "route": "cuda",
            "source": "src/repro_torch/csrc/bsr_spmv.cu",
            "replaces": "src/repro/kernels/bsr_spmv/kernel.py:37",

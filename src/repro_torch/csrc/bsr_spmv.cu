@@ -7,37 +7,50 @@
 //   values  (n_rb, max_bpr, b, b) float32, the dense blocks of each row
 //           stripe in slot order (padding slots all zero, col 0);
 //   col_ids (n_rb, max_bpr) int32, each slot's column-block index;
+//   counts  (n_rb,) int32, the real slots of each stripe: slots
+//           0 .. counts − 1 hold its blocks, the rest is padding;
 //
-// and x, y are (n_rb·b,) float32.
+// and x, y are (n_rb·b,) float32. `order` (n_rb,) int32 is the launch
+// order of the stripes, a permutation (the wrapper gives them by
+// descending count).
 //
 // Design. The TPU kernel keeps all of x in VMEM and issues one MXU dot
-// per (b, b) block in a sequential loop. Neither carries over: at the
-// paper's n = 2^18, x is 1 MB (over shared memory, but well inside the
-// 50 MB L2), and a matrix-vector product has no tensor-core use. Here
+// per (b, b) block in a sequential loop over every slot. Neither carries
+// over: at the paper's n = 2^18, x is 1 MB (over shared memory, but well
+// inside the 50 MB L2), and a matrix-vector product has no tensor-core
+// use. Here
 //
-//   - one block of 256 threads (8 warps) per row stripe; each warp owns
-//     b/8 rows of the stripe;
-//   - a row's b values are read as float4 by b/4 neighbouring lanes
-//     (b = 128: one warp, one coalesced 512 B read; b = 64: a half
-//     warp, two rows per read), streamed past the caches (`__ldcs`)
-//     since each block is read once;
+//   - each stripe reads only its real slots: the loop stops at its
+//     count, so the kernel moves the real blocks' bytes and never the
+//     padding (on a graph of uneven stripes, half the stored bytes or
+//     less);
+//   - one block of 256 threads (8 warps) per row stripe; block i takes
+//     stripe order[i], so the longest stripes start first and the short
+//     ones fill the card's tail (the stripes hold 9–45 real slots on the
+//     offline graphs); the order changes which SM runs a stripe, never
+//     how the stripe sums;
+//   - each warp owns b/8 rows of the stripe; a row's b values are read
+//     as float4 by b/4 neighbouring lanes (b = 128: one warp, one
+//     coalesced 512 B read; b = 64: a half warp, two rows per read),
+//     streamed past the caches (`__ldcs`) since each block is read once;
 //   - each lane reads its four x values of the slot's column block
 //     through the read-only path: x stays in L2 and L1 across the
 //     stripes that share it, with no barrier per slot;
 //   - per slot the warp issues the loads of all its rows together
 //     before any use (b/8 · 16 B a lane in flight), then each lane adds
 //     its four products to a per-row register partial in slot order;
-//   - after the last slot each row's lanes reduce their partials with
-//     shuffles in a fixed tree and one lane stores y.
+//   - after the last real slot each row's lanes reduce their partials
+//     with shuffles in a fixed tree and one lane stores y.
 //
-// Every padding slot is read like the rest (its zeros add nothing). No
-// atomics and no shared memory: the same inputs give the same bits on
-// every run.
+// A padding slot would add exact zeros, so stopping at the count gives
+// the same y, bit for bit, as summing every slot. No atomics and no
+// shared memory: the same inputs give the same bits on every run.
 //
-// What bounds it on the H100: the bytes of values (4 · n_rb · max_bpr ·
-// b², padding included), col_ids, x and y at 3.35 TB/s; 2 flops per
-// 4-byte value, far below the card's balance point. At the offline
-// phase's n = 2^18 with max_bpr ≈ 20–40, values is 3–5 GB: 1–1.6 ms.
+// What bounds it on the H100: the bytes of the real blocks
+// (4 · Σ counts · b²), their col_ids, the counts and order, x and y at
+// 3.35 TB/s; 2 flops per 4-byte value, far below the card's balance
+// point. At the offline phase's n = 2^18 (about 16 real blocks a
+// stripe) that is 2.2 GB: 0.65 ms.
 #include "common.cuh"
 
 namespace {
@@ -49,6 +62,8 @@ template <int B>
 __global__ void __launch_bounds__(kThreads)
 bsr_matvec_kernel(const float* __restrict__ values,
                   const int* __restrict__ col_ids,
+                  const int* __restrict__ counts,
+                  const int* __restrict__ order,
                   const float* __restrict__ x, float* __restrict__ y,
                   int max_bpr) {
   constexpr int kLanesPerRow = B / 4;                // float4 lanes a row
@@ -60,7 +75,8 @@ bsr_matvec_kernel(const float* __restrict__ values,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int quad = lane % kLanesPerRow;  // columns 4·quad .. 4·quad + 3
   const int row0 = warp * kRowsPerWarp + lane / kLanesPerRow;
-  const long long stripe = blockIdx.x;
+  const long long stripe = __ldg(order + blockIdx.x);
+  const int count = __ldg(counts + stripe);
   const int* cols = col_ids + stripe * max_bpr;
   const float4* blocks = reinterpret_cast<const float4*>(values) +
                          stripe * max_bpr * (B * B / 4);
@@ -69,7 +85,7 @@ bsr_matvec_kernel(const float* __restrict__ values,
 #pragma unroll
   for (int r = 0; r < kReads; ++r) acc[r] = 0.f;
 
-  for (int k = 0; k < max_bpr; ++k) {
+  for (int k = 0; k < count; ++k) {
     const float4* blk = blocks + static_cast<long long>(k) * (B * B / 4);
     float4 v[kReads];
 #pragma unroll
@@ -97,19 +113,21 @@ bsr_matvec_kernel(const float* __restrict__ values,
 
 }  // namespace
 
-// y = W x on `stream` for b = 64 or 128; returns the launch error (0 on
-// success), cudaErrorInvalidValue for any other b.
+// y = W x on `stream` for b = 64 or 128, stripes launched in `order`;
+// returns the launch error (0 on success), cudaErrorInvalidValue for any
+// other b.
 REPRO_EXPORT int bsr_matvec_launch(const float* values, const int* col_ids,
+                                   const int* counts, const int* order,
                                    const float* x, float* y, int n_rb,
                                    int max_bpr, int b, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_rb <= 0) return 0;
   if (b == 128) {
-    bsr_matvec_kernel<128><<<n_rb, kThreads, 0, s>>>(values, col_ids, x, y,
-                                                     max_bpr);
+    bsr_matvec_kernel<128><<<n_rb, kThreads, 0, s>>>(values, col_ids, counts,
+                                                     order, x, y, max_bpr);
   } else if (b == 64) {
-    bsr_matvec_kernel<64><<<n_rb, kThreads, 0, s>>>(values, col_ids, x, y,
-                                                    max_bpr);
+    bsr_matvec_kernel<64><<<n_rb, kThreads, 0, s>>>(values, col_ids, counts,
+                                                    order, x, y, max_bpr);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

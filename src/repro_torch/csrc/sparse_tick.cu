@@ -8,8 +8,10 @@
 // axis (tick_kernel.cuh, instantiated with the edge store): where the
 // Pallas kernel scatters into the store through a (k, m_pad) one-hot,
 // each lane that passes the gate stores max(w_old + Δw, 0) at its slot
-// with one plain store, since slots are unique within a tick. Shared
-// memory grows with k and j only; n_slots and m_pad have no ceiling.
+// with one plain store, since slots are unique within a tick; a warp
+// owns a stream and copies or zeroes its store row as float4 where the
+// row is 16-byte aligned. Shared memory grows with k only; n_slots and
+// m_pad have no ceiling.
 //
 // What bounds it on the H100: device memory, as for the dense tick, plus
 // the store: read the (n_slots,) strength and mask rows and the delta
@@ -18,10 +20,11 @@
 // place.
 #include "tick_kernel.cuh"
 
-// Dynamic shared memory one block needs for k edge lanes and j node
-// slots (`TickLayout`, the same layout as the dense tick's).
+// Dynamic shared memory one block (up to 8 streams) needs for k edge
+// lanes and j node slots (`TickLayout`, the dense tick's layout; it
+// grows with k only).
 REPRO_EXPORT long long sparse_tick_smem_bytes(int k, int j) {
-  return TickLayout(k, j).bytes();
+  return TickLayout(k).bytes();
 }
 
 // The card's per-block shared-memory limit (with the opt-in above 48 KB),
@@ -30,7 +33,14 @@ REPRO_EXPORT long long sparse_tick_smem_limit(int device) {
   return tick_smem_limit(device);
 }
 
-// Launch one block per stream row on `stream`; returns the launch's
+// Resident blocks per SM, streams (warps) per block and registers per
+// thread of the launch for k edge lanes and j node slots, into out[0..2];
+// returns the cudaError_t (0 on success).
+REPRO_EXPORT int sparse_tick_residency(int k, int j, int* out) {
+  return tick_residency<true>(k, j, out);
+}
+
+// Launch one warp per stream row on `stream`; returns the launch's
 // cudaError_t (0 on success), cudaErrorInvalidValue when the layout for
 // (k, j) exceeds the card's shared memory per block. `ew_out` may be
 // `edge_weights` (in place), as `str_out` may be `strengths`.

@@ -10,10 +10,10 @@
 // it without the edge store.
 #include "tick_kernel.cuh"
 
-// Dynamic shared memory one block needs for k edge lanes and j node
-// slots (`TickLayout`).
+// Dynamic shared memory one block (up to 8 streams) needs for k edge
+// lanes and j node slots (`TickLayout`; it grows with k only).
 REPRO_EXPORT long long stream_tick_smem_bytes(int k, int j) {
-  return TickLayout(k, j).bytes();
+  return TickLayout(k).bytes();
 }
 
 // The card's per-block shared-memory limit (with the opt-in above 48 KB),
@@ -22,7 +22,14 @@ REPRO_EXPORT long long stream_tick_smem_limit(int device) {
   return tick_smem_limit(device);
 }
 
-// Launch one block per stream row on `stream`; returns the launch's
+// Resident blocks per SM, streams (warps) per block and registers per
+// thread of the launch for k edge lanes and j node slots, into out[0..2];
+// returns the cudaError_t (0 on success).
+REPRO_EXPORT int stream_tick_residency(int k, int j, int* out) {
+  return tick_residency<false>(k, j, out);
+}
+
+// Launch one warp per stream row on `stream`; returns the launch's
 // cudaError_t (0 on success), cudaErrorInvalidValue when the layout for
 // (k, j) exceeds the card's shared memory per block.
 REPRO_EXPORT int stream_tick_launch(

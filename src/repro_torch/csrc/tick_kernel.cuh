@@ -23,79 +23,95 @@
 //
 // Design. The Pallas kernels build a (2k, n) one-hot, (2k, 2k) partner
 // and same-endpoint matrices and, for the store, a (k, m) one-hot,
-// because the TPU gathers on the MXU and scatters badly. Here one block
-// of 256 threads owns one stream:
+// because the TPU gathers on the MXU and scatters badly. Here one warp
+// owns one stream, and a block of up to 8 warps holds up to 8 streams.
+// A stream's work is a chain of dependent steps with little data (about
+// 11 KB at the serving size), so what bounds a launch of 32768 streams
+// is how many chains are in flight, not the bytes. A warp synchronises
+// with `__syncwarp` and shuffles only: no block barrier, so a stream
+// never waits on another.
 //
-//   - the 2k endpoint ids, gates, strengths and masked Δw, and the j node
-//     slots, sit in shared memory; endpoint strengths and mask values are
-//     gathered straight from the stream's row in device memory;
-//   - the valid endpoints are sorted by (node id, endpoint index) with a
-//     bitonic sort in shared memory; a segment head is the first entry of
-//     its id, and its thread sums the segment's Δw in endpoint order:
-//     deterministic, no atomics on values. (Finding heads by scanning
-//     all earlier endpoints instead costs O(k²) dependent shared-memory
-//     loads per stream and is slower than the plain version; PERF.md.)
-//   - the heads go into a small open-addressing table in shared memory
-//     (node id → head), sized by 2k and never by n;
-//   - the scalars are reduced in a fixed order (common.cuh), and every
-//     thread then evaluates the Theorem-2 updates from the same totals;
-//   - the (n,) strength and mask rows are streamed once: each element is
-//     read, looked up in the head table, and given its final value
-//     (str + Δs)·mask_after, or 0 on an empty snap; the exact s_max of
-//     both updates is reduced over the final values in the same pass;
-//   - the edge store is a plain indexed store: slots are unique within a
-//     tick among the lanes that write (the SlotMap contract), so thread t
-//     stores lane t's weight and no two threads meet.
+//   - Edges in chunks of 32, one a lane (coalesced loads): the two
+//     endpoints' gates (the mask gathered from the row, joins from the
+//     node slots broadcast by shuffles), the edge's validity and Δw, its
+//     part of the edge sums, and two sort keys (node id << 32 | endpoint
+//     index), the largest key for an invalid endpoint.
+//   - The keys are sorted by a bitonic network. Up to 256 keys (k ≤ 128,
+//     the serving size) they stay in registers, up to 8 a lane: compare-
+//     exchanges inside a lane and `__shfl_xor_sync` across lanes. Above
+//     that the warp sorts its slice of shared memory. Either way the
+//     order is (node id, endpoint index) and the sorted keys land in the
+//     slice.
+//   - A segment head (the first key of its id) sums its segment's Δw in
+//     endpoint order, by one lane, and keeps the sum in its key's low
+//     word; the node sums of both updates follow from it.
+//   - The eight scalar reductions are warp shuffles in a fixed xor tree:
+//     every lane ends with the same bits, and two launches agree.
+//   - The (n,) strength and mask rows are streamed once, 32 elements a
+//     step, four steps of loads in flight. The j node slots sit in
+//     registers (slot t in lane t; more than 32 are read again from the
+//     delta), and a step's join and leave bits are two `__reduce_or_sync`.
+//     A step's Δs come from merging it against the sorted heads: a
+//     pointer walks the keys, and the heads whose ids fall in the step
+//     pass their Δs through a 32-float scratch. The exact s_max of both
+//     updates is reduced over the final values in the same pass.
+//   - A stream whose every endpoint is gated off (every lane masked, or
+//     all on dead nodes) skips the sort and the Δs work; it still streams
+//     the row for the exact s_max, the joins and leaves, and the copy out
+//     of place.
+//   - The edge store is a plain indexed store: slots are unique within a
+//     tick among the lanes that write (the SlotMap contract), so lane t
+//     stores its edges' weights and no two lanes meet.
 //
 // The rows are never staged in shared memory, so n and m have no
-// shared-memory ceiling; shared memory grows with k and j only.
-// `TickLayout` below is the one home of the shared-memory layout: the
-// kernel carves its arrays from it, and `launch_tick` sizes the launch
-// from it and refuses (cudaErrorInvalidValue) a layout above the card's
-// per-block opt-in limit, which the `*_smem_bytes` / `*_smem_limit`
-// exports let the wrappers check by name first.
+// shared-memory ceiling; shared memory grows with k only (keys, Δw,
+// validity bits, scratch; about 2.6 KB a stream at k = 128). `TickLayout`
+// below is the one home of the shared-memory layout: the kernel carves
+// each warp's slice from it, and `launch_tick` sizes the launch from it
+// (streams a block, bytes a block) and refuses (cudaErrorInvalidValue) a
+// layout above the card's per-block opt-in limit, which the
+// `*_smem_bytes` / `*_smem_limit` exports let the wrappers check by name
+// first. `tick_residency` reports the resident blocks and streams per SM
+// and the registers a thread.
 //
 // In place. The wrapper may pass the output rows as the input rows (the
 // PyTorch counterpart of JAX's donation). Every gather from the input
-// rows completes before the first write (the barriers after steps 2 and
-// 3), and in step 6 each thread reads an element before it writes the
-// same element; the scalars are read by every thread before the block's
-// last barrier and written by thread 0 after it. In place, step 6 writes
-// only the elements whose value changes (the touched nodes, the join and
-// leave slots, or the whole row on an empty snap); out of place it
-// writes every element. The edge store is never read in place: the
-// lanes carry their old weights. Out of place its row is copied first
-// and the lane stores land only after the block's last barrier, so a
-// copy never overwrites a store; in place only the lanes' slots are
-// written, or the whole row is zeroed on an empty snap.
+// rows (steps 1–3) completes before the `__syncwarp` that precedes the
+// row pass, and in the row pass each lane reads an element before it
+// writes the same element; lane 0 writes the scalars after the warp's
+// last `__syncwarp`. In place, the row pass writes only the elements
+// whose value changes (the touched nodes, the join and leave slots, or
+// the whole row on an empty snap); out of place it writes every element.
+// The edge store is never read in place: the lanes carry their old
+// weights. Out of place its row is copied first and the lane stores land
+// only after a `__syncwarp`, so a copy never overwrites a store; in
+// place only the lanes' slots are written, or the whole row is zeroed on
+// an empty snap.
 //
 // What bounds it on the H100: device memory. Per stream the tick must
 // read the (n,) strength and mask rows (8·n bytes) and the delta
 // (k·20 + j·8 bytes, plus k·4 for the edge slots), and write the rows
 // (8·n bytes, and 4·m for the store) out of place or only their changed
 // elements in place (plus k store slots); the arithmetic is
-// O(k log² k + n·j) compares and O(k + n) flops, far below the card's
-// compute peak.
+// O(k log² k + n) compares and O(k + n) flops, far below the card's
+// compute peak. A stream's chain of dependent steps, not its bytes, set
+// the time of a block-per-stream design (6 streams resident on an SM, each
+// waiting on about 60 block barriers); this design's aim is enough
+// streams in flight (32 on an SM at the serving size) for the chains to
+// overlap.
 #pragma once
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ unsigned hash_slot(int id, int hmask) {
-  return (static_cast<unsigned>(id) * 2654435761u) & static_cast<unsigned>(hmask);
-}
-
-__device__ __forceinline__ int table_find(const int* keys, const int* vals,
-                                          int hmask, int id) {
-  for (unsigned s = hash_slot(id, hmask);; s = (s + 1) & hmask) {
-    const int key = keys[s];
-    if (key == id) return vals[s];
-    if (key == -1) return -1;
-  }
-}
+constexpr int kMaxStreams = 8;                 // warps (streams) a block
+constexpr int kThreads = 32 * kMaxStreams;
+constexpr int kRegKeys = 256;                  // keys sorted in registers
+constexpr long long kBlockSmemTarget = 96 * 1024;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kNoKey = ~0ull;   // an invalid endpoint
+constexpr int kRowSteps = 4;                   // row steps of loads in flight
 
 // eq. (2) from the carried scalars, H̃ = 0 on an empty graph.
 __device__ __forceinline__ float h_tilde(float q, float s, float s_max) {
@@ -122,20 +138,32 @@ __device__ __forceinline__ Update theorem2(float q0, float s0, float c0,
   return {empty ? 1.f : q_new, empty ? 0.f : s_raw, empty};
 }
 
-// Shared memory of one block: the 8-byte sort keys first, then 4-byte
-// words — six (2k,) endpoint arrays, two (j,) node-slot arrays, the
-// two-array head table and a 32-float reduction scratch.
+// Shared memory of one stream (one warp's slice): the sort keys, the
+// (k,) masked Δw, one validity word per 32 edges and a 32-float scratch
+// (the node slots take none); and how many streams share a block. A
+// block takes as many streams as fit in kBlockSmemTarget (at most 8, at
+// least 1), so the largest layouts still put two blocks on an SM.
 struct TickLayout {
-  int two_k, j, sort_n, table_size;
+  int sort_n, words;
+  long long stream_bytes;
+  int streams;
 
-  __host__ __device__ TickLayout(int k, int j_)
-      : two_k(2 * k), j(j_), sort_n(2), table_size(32) {
-    while (sort_n < two_k) sort_n <<= 1;          // bitonic sort length
-    while (table_size < 2 * two_k) table_size <<= 1;  // load factor <= 1/2
+  __host__ __device__ explicit TickLayout(int k) : sort_n(64) {
+    while (sort_n < 2 * k) sort_n <<= 1;  // bitonic length, ≥ 2 a lane
+    words = (k + 31) / 32;
+    stream_bytes = (8ll * sort_n + 4ll * k + 4ll * words + 4ll * 32 + 15) &
+                   ~15ll;
+    const long long fit = kBlockSmemTarget / stream_bytes;
+    streams = fit < 1 ? 1 : (fit > kMaxStreams ? kMaxStreams : int(fit));
   }
 
+  // Dynamic shared memory of one block.
   __host__ __device__ long long bytes() const {
-    return 8ll * sort_n + 4ll * (6 * two_k + 2 * j + 2 * table_size + 32);
+    return streams * stream_bytes;
+  }
+  // Keys a lane holds in registers, or 0 for the shared-memory sort.
+  __host__ __device__ int keys_per_lane() const {
+    return sort_n <= kRegKeys ? sort_n / 32 : 0;
   }
 };
 
@@ -148,8 +176,126 @@ struct EdgeStore {
   int m;
 };
 
-template <bool kEdgeStore>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ unsigned long long umin64(unsigned long long a,
+                                                     unsigned long long b) {
+  return a < b ? a : b;
+}
+
+__device__ __forceinline__ unsigned long long umax64(unsigned long long a,
+                                                     unsigned long long b) {
+  return a < b ? b : a;
+}
+
+// Bitonic sort of 32·KPL keys held KPL a lane, lane L holding positions
+// L·KPL .. L·KPL + KPL − 1: strides below KPL compare inside a lane,
+// the others across lanes with one 64-bit shuffle a key.
+template <int KPL>
+__device__ __forceinline__ void warp_sort(unsigned long long (&key)[KPL],
+                                          int lane) {
+  constexpr int N = 32 * KPL;
+#pragma unroll
+  for (int size = 2; size <= N; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= KPL) {
+        const int lx = stride / KPL;
+        const bool asc = ((lane * KPL) & size) == 0;
+        const bool keep_min = asc == ((lane & lx) == 0);
+#pragma unroll
+        for (int r = 0; r < KPL; ++r) {
+          const unsigned long long o = __shfl_xor_sync(kFull, key[r], lx);
+          key[r] = keep_min ? umin64(key[r], o) : umax64(key[r], o);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < KPL; ++r) {
+          if (r & stride) continue;
+          const bool asc = ((lane * KPL + r) & size) == 0;
+          const unsigned long long a = key[r], b = key[r | stride];
+          if ((a > b) == asc) {
+            key[r] = b;
+            key[r | stride] = a;
+          }
+        }
+      }
+    }
+  }
+}
+
+// Bitonic sort of the warp's n keys in shared memory (n a power of two),
+// one `__syncwarp` a stage.
+__device__ __forceinline__ void warp_sort_shared(unsigned long long* key,
+                                                 int n, int lane) {
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = lane; t < (n >> 1); t += 32) {
+        const int lo = 2 * stride * (t / stride) + t % stride;
+        const int hi = lo + stride;
+        const unsigned long long a = key[lo], b = key[hi];
+        if ((a > b) == ((lo & size) == 0)) {
+          key[lo] = b;
+          key[hi] = a;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// The join and leave bits of the 32 node ids [c, c + 32): bit i is set
+// when a node slot with id c + i has a positive (join) or negative
+// (leave) flag. Slots 0–31 come from the registers (lane t holds slot
+// t); any others are read from the delta.
+__device__ __forceinline__ void slot_bits(int c, int my_nid, float my_flag,
+                                          const int* nid_row,
+                                          const float* nflag_row, int j,
+                                          int lane, unsigned& join,
+                                          unsigned& leave) {
+  unsigned off = static_cast<unsigned>(my_nid) - static_cast<unsigned>(c);
+  bool in = lane < j && off < 32u;
+  join = __reduce_or_sync(kFull, in && my_flag > 0.f ? 1u << off : 0u);
+  leave = __reduce_or_sync(kFull, in && my_flag < 0.f ? 1u << off : 0u);
+  for (int g = 32; g < j; g += 32) {
+    const int t = g + lane;
+    const int id = t < j ? nid_row[t] : -1;
+    const float f = t < j ? nflag_row[t] : 0.f;
+    off = static_cast<unsigned>(id) - static_cast<unsigned>(c);
+    in = t < j && off < 32u;
+    join |= __reduce_or_sync(kFull, in && f > 0.f ? 1u << off : 0u);
+    leave |= __reduce_or_sync(kFull, in && f < 0.f ? 1u << off : 0u);
+  }
+}
+
+// Whether nodes `a` and `b` join in this delta (a slot with the id and a
+// positive flag), for one edge a lane; slots broadcast from the
+// registers (0–31) or read from the delta.
+__device__ __forceinline__ void joins(int a, int b, int my_nid,
+                                      float my_flag, const int* nid_row,
+                                      const float* nflag_row, int j,
+                                      bool& ja, bool& jb) {
+  ja = jb = false;
+  const int head = j < 32 ? j : 32;
+  for (int t = 0; t < head; ++t) {
+    const int sid = __shfl_sync(kFull, my_nid, t);
+    const bool on = __shfl_sync(kFull, my_flag, t) > 0.f;
+    ja |= on && sid == a;
+    jb |= on && sid == b;
+  }
+  for (int t = 32; t < j; ++t) {
+    const bool on = nflag_row[t] > 0.f;
+    ja |= on && nid_row[t] == a;
+    jb |= on && nid_row[t] == b;
+  }
+}
+
+// Per-stream partial sums of the edge lanes and of the segment heads.
+struct Sums {
+  float node_f = 0.f, node_h = 0.f, edge_f = 0.f, edge_h = 0.f;
+  float dsum = 0.f, abs_sum = 0.f, mx_f = -INFINITY, mx_h = -INFINITY;
+};
+
+template <bool kEdgeStore, int KPL>
+__global__ void __launch_bounds__(kThreads, 4)
 tick_kernel(const float* q, const float* s_total, const float* s_max,
             const float* strengths, const float* node_mask,
             const int* __restrict__ senders,
@@ -160,209 +306,255 @@ tick_kernel(const float* q, const float* s_total, const float* s_max,
             const int* __restrict__ nid,
             const float* __restrict__ nflag,
             float* dist, float* q_out, float* s_out, float* smax_out,
-            float* str_out, float* mask_out, EdgeStore store, int n, int k,
-            int j, int exact_smax) {
+            float* str_out, float* mask_out, EdgeStore store, int rows,
+            int n, int k, int j, int exact_smax) {
   extern __shared__ unsigned long long smem[];
-  const TickLayout lay(k, j);
-  const int two_k = lay.two_k, sort_n = lay.sort_n;
-  const int table_size = lay.table_size, hmask = table_size - 1;
+  const TickLayout lay(k);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long row = static_cast<long long>(blockIdx.x) * lay.streams +
+                        warp;
+  if (row >= rows) return;  // a whole warp: no block barrier waits on it
+  const int sort_n = lay.sort_n, words = lay.words;
+  unsigned long long* s_key = smem + warp * (lay.stream_bytes / 8);  // [N]
+  float* s_val = reinterpret_cast<float*>(s_key + sort_n);   // [k] Δw·valid
+  unsigned* s_vbits = reinterpret_cast<unsigned*>(s_val + k);  // [words]
+  float* s_scratch = reinterpret_cast<float*>(s_vbits + words);  // [32]
   const bool in_place = str_out == strengths;
-  const long long row = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-
-  unsigned long long* s_sort = smem;          // [N]  sort keys, N = sort_n
-  int* s_id = reinterpret_cast<int*>(s_sort + sort_n);  // [2k] endpoint ids
-  int* s_nid = s_id + two_k;                  // [j]  node-slot ids
-  int* s_key = s_nid + j;                     // [T]  head table keys
-  int* s_head = s_key + table_size;           // [T]  head table values
-  float* s_str = reinterpret_cast<float*>(s_head + table_size);  // [2k]
-  float* s_gate = s_str + two_k;              // [2k] post-join mask at id
-  float* s_valid = s_gate + two_k;            // [2k] edge validity
-  float* s_val = s_valid + two_k;             // [2k] Δw · validity
-  float* s_ds = s_val + two_k;                // [2k] Δs at segment heads
-  float* s_flag = s_ds + two_k;               // [j]  node-slot flags
-  float* scratch = s_flag + j;                // [32] reduction scratch
 
   const float* str_row = strengths + row * n;
   const float* mask_row = node_mask + row * n;
+  const int* nid_row = nid + row * j;
+  const float* nflag_row = nflag + row * j;
   const float q0 = q[row], s0 = s_total[row], smax0 = s_max[row];
 
-  // -- 1. endpoint ids and node slots into shared memory ---------------
-  for (int t = tid; t < j; t += nt) {
-    s_nid[t] = nid[row * j + t];
-    s_flag[t] = nflag[row * j + t];
+  // -- node slots 0–31 in registers; whether any slot is active --------
+  int my_nid = -1;
+  float my_flag = 0.f;
+  if (lane < j) {
+    my_nid = nid_row[lane];
+    my_flag = nflag_row[lane];
   }
-  for (int t = tid; t < table_size; t += nt) s_key[t] = -1;
-  for (int e = tid; e < two_k; e += nt)
-    s_id[e] = e < k ? senders[row * k + e] : receivers[row * k + e - k];
-  __syncthreads();
+  bool any_join = __any_sync(kFull, my_flag > 0.f);
+  bool any_slot = __any_sync(kFull, my_flag != 0.f);
+  for (int g = 32; g < j; g += 32) {
+    const float f = g + lane < j ? nflag_row[g + lane] : 0.f;
+    any_join |= __any_sync(kFull, f > 0.f);
+    any_slot |= __any_sync(kFull, f != 0.f);
+  }
 
-  // -- 2. gate by the post-join mask; gather endpoint strengths ---------
-  for (int e = tid; e < two_k; e += nt) {
-    const int id = s_id[e];
-    float gate = 0.f, s = 0.f;
-    if (id >= 0 && id < n) {
-      float join = 0.f;
-      for (int t = 0; t < j; ++t)
-        if (s_nid[t] == id && s_flag[t] > 0.f) join = 1.f;
-      gate = fmaxf(mask_row[id], join);
-      s = str_row[id];
+  // -- edges, 32 a chunk: gates, validity, Δw, edge sums, sort keys ----
+  Sums acc;
+  const long long dl = row * k;
+  int n_valid = 0;
+  auto edge = [&](int i, unsigned long long& key_s,
+                  unsigned long long& key_r) {
+    const int ek = 32 * i + lane;
+    float val = 0.f, valid = 0.f;
+    int s = -1, r = -1;
+    if (ek < k) {
+      s = senders[dl + ek];
+      r = receivers[dl + ek];
     }
-    s_gate[e] = gate;
-    s_str[e] = s;
-  }
-  __syncthreads();
+    bool js = false, jr = false;
+    if (any_join)
+      joins(s, r, my_nid, my_flag, nid_row, nflag_row, j, js, jr);
+    if (ek < k) {
+      // a masked lane gathers nothing: its validity is 0 whatever the gates
+      const float em = emask[dl + ek];
+      const bool gather = em != 0.f;
+      const float g_s = gather && s >= 0 && s < n
+                            ? fmaxf(mask_row[s], js ? 1.f : 0.f) : 0.f;
+      const float g_r = gather && r >= 0 && r < n
+                            ? fmaxf(mask_row[r], jr ? 1.f : 0.f) : 0.f;
+      valid = em * g_s * g_r;
+      val = dw[dl + ek] * valid;
+      const float hval = 0.5f * val, wo = w_old[dl + ek];
+      acc.edge_f += 4.f * wo * val + 2.f * val * val;
+      acc.edge_h += 4.f * wo * hval + 2.f * hval * hval;
+      acc.dsum += val;
+      acc.abs_sum += fabsf(val);
+      s_val[ek] = val;
+    }
+    const bool ok = valid > 0.f;
+    const unsigned vb = __ballot_sync(kFull, ok);
+    if (lane == 0 && i < words) s_vbits[i] = vb;
+    n_valid += 2 * __popc(vb);
+    key_s = ok ? (static_cast<unsigned long long>(static_cast<unsigned>(s))
+                  << 32) | static_cast<unsigned>(ek)
+               : kNoKey;
+    key_r = ok ? (static_cast<unsigned long long>(static_cast<unsigned>(r))
+                  << 32) | static_cast<unsigned>(k + ek)
+               : kNoKey;
+  };
 
-  // -- 3. edge validity: the edge mask and both endpoints' gates --------
-  for (int e = tid; e < two_k; e += nt) {
-    const int ek = e < k ? e : e - k;
-    const int partner = e < k ? e + k : e - k;
-    const float v = emask[row * k + ek] * s_gate[e] * s_gate[partner];
-    s_valid[e] = v;
-    s_val[e] = dw[row * k + ek] * v;
-  }
-  __syncthreads();
-
-  // -- 4. sort the valid endpoints by (node id, endpoint index) ---------
-  // A bitonic sort in shared memory: log2(N)·(log2(N)+1)/2 barriers for
-  // N = sort_n, every pair compared by one thread. Invalid endpoints
-  // carry the largest key and sort last.
-  for (int t = tid; t < sort_n; t += nt) {
-    s_sort[t] = t < two_k && s_valid[t] > 0.f
-        ? (static_cast<unsigned long long>(static_cast<unsigned>(s_id[t]))
-           << 32) | static_cast<unsigned>(t)
-        : ~0ull;
-  }
-  __syncthreads();
-  for (int size = 2; size <= sort_n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < (sort_n >> 1); t += nt) {
-        const int lo = 2 * stride * (t / stride) + t % stride;
-        const int hi = lo + stride;
-        const unsigned long long a = s_sort[lo], b = s_sort[hi];
-        if ((a > b) == ((lo & size) == 0)) {
-          s_sort[lo] = b;
-          s_sort[hi] = a;
-        }
+  if constexpr (KPL > 0) {
+    unsigned long long key[KPL];
+#pragma unroll
+    for (int i = 0; i < KPL / 2; ++i) edge(i, key[2 * i], key[2 * i + 1]);
+    if (n_valid > 0) {
+      warp_sort<KPL>(key, lane);
+#pragma unroll
+      for (int r = 0; r < KPL; ++r) s_key[lane * KPL + r] = key[r];
+    }
+  } else {
+    for (int i = 0; i < words; ++i) {
+      unsigned long long a, b;
+      edge(i, a, b);
+      const int ek = 32 * i + lane;
+      if (ek < k) {
+        s_key[2 * ek] = a;
+        s_key[2 * ek + 1] = b;
       }
-      __syncthreads();
+    }
+    if (n_valid > 0) {
+      for (int p = 2 * k + lane; p < sort_n; p += 32) s_key[p] = kNoKey;
+      __syncwarp();
+      warp_sort_shared(s_key, sort_n, lane);
     }
   }
+  __syncwarp();
 
-  // -- 5. segment heads, Δs, and the partial sums of both updates -------
-  // A head is the first sorted entry of its node id (its smallest
-  // endpoint index); its thread sums the segment's Δw in endpoint order,
-  // so the result is the same on every run.
-  float node_f = 0.f, node_h = 0.f, mx_f = -INFINITY, mx_h = -INFINITY;
-  for (int p = tid; p < two_k; p += nt) {
-    const unsigned long long key = s_sort[p];
-    const unsigned long long id_bits = key >> 32;
-    if (key == ~0ull || (p > 0 && (s_sort[p - 1] >> 32) == id_bits))
-      continue;
-    const int id = static_cast<int>(id_bits);
-    const int e = static_cast<int>(key & 0xffffffffu);
+  // -- segment heads: Δs in endpoint order, the node sums ---------------
+  // A head is the first sorted key of its id (its smallest endpoint
+  // index); its lane sums the segment's Δw in endpoint order and keeps
+  // the sum in the key's low word (only the high word, the id, is read
+  // by the other lanes).
+  for (int base = 0; base < n_valid; base += 32) {
+    const int p = base + lane;
+    if (p >= n_valid) continue;
+    const unsigned long long key = s_key[p];
+    const unsigned id = static_cast<unsigned>(key >> 32);
+    if (p > 0 && static_cast<unsigned>(s_key[p - 1] >> 32) == id) continue;
     float ds = 0.f;
-    for (int q = p; q < two_k && (s_sort[q] >> 32) == id_bits; ++q)
-      ds += s_val[static_cast<int>(s_sort[q] & 0xffffffffu)];
-    s_ds[e] = ds;
-    for (unsigned slot = hash_slot(id, hmask);; slot = (slot + 1) & hmask) {
-      if (atomicCAS(&s_key[slot], -1, id) == -1) {
-        s_head[slot] = e;
-        break;
-      }
+    for (int q = p; q < n_valid; ++q) {
+      const unsigned long long kq = s_key[q];
+      if (static_cast<unsigned>(kq >> 32) != id) break;
+      const int e = static_cast<int>(kq & 0xffffffffu);
+      ds += s_val[e < k ? e : e - k];
     }
-    const float s = s_str[e], hds = 0.5f * ds;
-    node_f += 2.f * s * ds + ds * ds;
-    node_h += 2.f * s * hds + hds * hds;
-    mx_f = fmaxf(mx_f, s + ds);
-    mx_h = fmaxf(mx_h, s + hds);
+    reinterpret_cast<unsigned*>(s_key + p)[0] = __float_as_uint(ds);
+    const float s = str_row[id], hds = 0.5f * ds;
+    acc.node_f += 2.f * s * ds + ds * ds;
+    acc.node_h += 2.f * s * hds + hds * hds;
+    acc.mx_f = fmaxf(acc.mx_f, s + ds);
+    acc.mx_h = fmaxf(acc.mx_h, s + hds);
   }
-  float edge_f = 0.f, edge_h = 0.f, dsum = 0.f, abs_sum = 0.f;
-  for (int e = tid; e < k; e += nt) {
-    const float val = s_val[e], hval = 0.5f * val;
-    const float wo = w_old[row * k + e];
-    edge_f += 4.f * wo * val + 2.f * val * val;
-    edge_h += 4.f * wo * hval + 2.f * hval * hval;
-    dsum += val;
-    abs_sum += fabsf(val);
-  }
-  node_f = block_sum(node_f, scratch);
-  node_h = block_sum(node_h, scratch);
-  edge_f = block_sum(edge_f, scratch);
-  edge_h = block_sum(edge_h, scratch);
-  dsum = block_sum(dsum, scratch);
-  abs_sum = block_sum(abs_sum, scratch);
-  mx_f = block_max(mx_f, scratch);
-  mx_h = block_max(mx_h, scratch);
+  const float node_f = warp_sum(acc.node_f), node_h = warp_sum(acc.node_h);
+  const float edge_f = warp_sum(acc.edge_f), edge_h = warp_sum(acc.edge_h);
+  const float dsum = warp_sum(acc.dsum), abs_sum = warp_sum(acc.abs_sum);
+  const float mx_f = warp_max(acc.mx_f), mx_h = warp_max(acc.mx_h);
 
-  // Every thread evaluates both updates from the same totals.
+  // Every lane evaluates both updates from the same totals.
   const float c0 = s0 > 0.f ? 1.f / s0 : 0.f;
   const float d_s = 2.f * dsum, abs_moved = 2.f * abs_sum;
   const Update upd_half = theorem2(q0, s0, c0, 0.5f * d_s,
                                    node_h + edge_h, 0.5f * abs_moved);
   const Update upd_full = theorem2(q0, s0, c0, d_s, node_f + edge_f,
                                    abs_moved);
+  __syncwarp();  // every gather and head sum before the first write
 
-  // -- 6. stream the row once: final strengths and mask ----------------
+  // -- stream the row once: final strengths and mask -------------------
   float rmax_f = -INFINITY, rmax_h = -INFINITY;
-  for (int i = tid; i < n; i += nt) {
-    const float s = str_row[i], m = mask_row[i];
-    float join = 0.f, leave = 0.f;
-    for (int t = 0; t < j; ++t) {
-      if (s_nid[t] == i) {
-        if (s_flag[t] > 0.f) join = 1.f;
-        if (s_flag[t] < 0.f) leave = 1.f;
+  int ptr = 0;  // the first sorted key not yet merged
+  unsigned next_id = n_valid > 0 ? static_cast<unsigned>(s_key[0] >> 32)
+                                 : 0xffffffffu;
+  for (int first = 0; first < n; first += 32 * kRowSteps) {
+    float sv[kRowSteps], mv[kRowSteps];
+#pragma unroll
+    for (int u = 0; u < kRowSteps; ++u) {
+      const int i = first + 32 * u + lane;
+      sv[u] = i < n ? str_row[i] : 0.f;
+      mv[u] = i < n ? mask_row[i] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kRowSteps; ++u) {
+      const int c = first + 32 * u;
+      if (c >= n) break;
+      const int i = c + lane;
+      unsigned jbits = 0u, lbits = 0u;
+      if (any_slot)
+        slot_bits(c, my_nid, my_flag, nid_row, nflag_row, j, lane, jbits,
+                  lbits);
+      float ds = 0.f;
+      while (next_id < static_cast<unsigned>(c + 32)) {
+        const int p = ptr + lane;
+        const unsigned long long key = p < n_valid ? s_key[p] : kNoKey;
+        const unsigned id = static_cast<unsigned>(key >> 32);
+        const bool in = p < n_valid && id < static_cast<unsigned>(c + 32);
+        const bool head =
+            in && (p == 0 || static_cast<unsigned>(s_key[p - 1] >> 32) != id);
+        if (head) s_scratch[id - c] = __uint_as_float(
+            static_cast<unsigned>(key & 0xffffffffu));
+        const unsigned present =
+            __reduce_or_sync(kFull, head ? 1u << (id - c) : 0u);
+        ptr += __popc(__ballot_sync(kFull, in));
+        __syncwarp();
+        if ((present >> lane) & 1u) ds = s_scratch[lane];
+        next_id = ptr < n_valid ? static_cast<unsigned>(s_key[ptr] >> 32)
+                                : 0xffffffffu;
+        __syncwarp();
+      }
+      const float s = sv[u], m = mv[u];
+      const float join = static_cast<float>((jbits >> lane) & 1u);
+      const float leave = static_cast<float>((lbits >> lane) & 1u);
+      const float m_joined = fmaxf(m, join);
+      const float m_after = m_joined * (1.f - leave);
+      const float v_full = upd_full.empty ? 0.f : (s + ds) * m_after;
+      const float v_half = upd_half.empty ? 0.f
+                                          : (s + 0.5f * ds) * m_joined;
+      if (i < n) {
+        rmax_f = fmaxf(rmax_f, v_full);
+        rmax_h = fmaxf(rmax_h, v_half);
+        if (!in_place || v_full != s) str_out[row * n + i] = v_full;
+        if (!in_place || m_after != m) mask_out[row * n + i] = m_after;
       }
     }
-    const float m_joined = fmaxf(m, join);
-    const float m_after = m_joined * (1.f - leave);
-    const int h = table_find(s_key, s_head, hmask, i);
-    const float ds = h >= 0 ? s_ds[h] : 0.f;
-    const float v_full = upd_full.empty ? 0.f : (s + ds) * m_after;
-    const float v_half = upd_half.empty ? 0.f : (s + 0.5f * ds) * m_joined;
-    rmax_f = fmaxf(rmax_f, v_full);
-    rmax_h = fmaxf(rmax_h, v_half);
-    if (!in_place || v_full != s) str_out[row * n + i] = v_full;
-    if (!in_place || m_after != m) mask_out[row * n + i] = m_after;
   }
 
-  // -- 7a. the edge store's row: copied out of place, zeroed on a snap --
+  // -- the edge store's row: copied out of place, zeroed on a snap; then
+  //    each gated lane stores its new weight at its slot ----------------
   const bool store_snap = !(upd_full.s > 0.f);
   if constexpr (kEdgeStore) {
     const float* ew_row = store.in + row * store.m;
     float* ewo_row = store.out + row * store.m;
-    if (store_snap) {
-      for (int i = tid; i < store.m; i += nt) ewo_row[i] = 0.f;
-    } else if (store.out != store.in) {
-      for (int i = tid; i < store.m; i += nt) ewo_row[i] = ew_row[i];
+    const bool vec = (store.m & 3) == 0 &&
+        ((reinterpret_cast<size_t>(ew_row) |
+          reinterpret_cast<size_t>(ewo_row)) & 15) == 0;
+    if (store_snap || store.out != store.in) {
+      if (vec) {
+        const float4* src = reinterpret_cast<const float4*>(ew_row);
+        float4* dst = reinterpret_cast<float4*>(ewo_row);
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int i = lane; i < (store.m >> 2); i += 32)
+          dst[i] = store_snap ? zero : src[i];
+      } else {
+        for (int i = lane; i < store.m; i += 32)
+          ewo_row[i] = store_snap ? 0.f : ew_row[i];
+      }
+    }
+    __syncwarp();  // the lane stores land after the copy
+    if (!store_snap) {
+      for (int i = 0; i < words; ++i) {
+        const int ek = 32 * i + lane;
+        if (ek < k && ((s_vbits[i] >> lane) & 1u)) {
+          const int slot = store.slot[dl + ek];
+          if (slot >= 0 && slot < store.m)
+            ewo_row[slot] = fmaxf(w_old[dl + ek] + dw[dl + ek], 0.f);
+        }
+      }
     }
   }
 
   float smax_f, smax_h;
   if (exact_smax) {
-    smax_f = block_max(rmax_f, scratch);
-    smax_h = block_max(rmax_h, scratch);
+    smax_f = warp_max(rmax_f);
+    smax_h = warp_max(rmax_h);
   } else {
     smax_f = upd_full.empty ? 0.f : smax0 + fmaxf(0.f, mx_f - smax0);
     smax_h = upd_half.empty ? 0.f : smax0 + fmaxf(0.f, mx_h - smax0);
   }
-  // Thread 0 writes the scalars only after every thread has read them;
-  // the lane stores land only after the row copy.
-  __syncthreads();
-  if constexpr (kEdgeStore) {
-    // -- 7b. each gated lane stores its new weight at its slot ----------
-    if (!store_snap) {
-      float* ewo_row = store.out + row * store.m;
-      for (int t = tid; t < k; t += nt) {
-        if (s_valid[t] > 0.f) {
-          const int slot = store.slot[row * k + t];
-          if (slot >= 0 && slot < store.m)
-            ewo_row[slot] = fmaxf(w_old[row * k + t] + dw[row * k + t], 0.f);
-        }
-      }
-    }
-  }
-  if (tid == 0) {
+  __syncwarp();  // every lane has read the scalars
+  if (lane == 0) {
     const float h_pre = h_tilde(q0, s0, smax0);
     const float h_half = h_tilde(upd_half.q, upd_half.s, smax_h);
     const float h_full = h_tilde(upd_full.q, upd_full.s, smax_f);
@@ -384,9 +576,60 @@ long long tick_smem_limit(int device) {
   return limit;
 }
 
-// Launch one block per stream row on `stream`; returns the launch's
-// cudaError_t (0 on success), cudaErrorInvalidValue when the layout for
-// (k, j) exceeds the card's shared memory per block.
+template <bool kEdgeStore>
+using TickFn = decltype(&tick_kernel<kEdgeStore, 0>);
+
+// The instantiation for a layout: keys in registers (2, 4 or 8 a lane)
+// or the shared-memory sort.
+template <bool kEdgeStore>
+TickFn<kEdgeStore> tick_fn(const TickLayout& lay) {
+  switch (lay.keys_per_lane()) {
+    case 2: return tick_kernel<kEdgeStore, 2>;
+    case 4: return tick_kernel<kEdgeStore, 4>;
+    case 8: return tick_kernel<kEdgeStore, 8>;
+    default: return tick_kernel<kEdgeStore, 0>;
+  }
+}
+
+// Opt the instantiation in to the layout's dynamic shared memory;
+// cudaErrorInvalidValue when it exceeds the card's per-block limit.
+template <bool kEdgeStore>
+cudaError_t tick_prepare(const TickLayout& lay) {
+  const long long smem = lay.bytes();
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const long long limit = tick_smem_limit(device);
+  if (limit < 0) return cudaGetLastError();
+  if (smem > limit) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(tick_fn<kEdgeStore>(lay),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// Resident blocks per SM (from cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// streams per block and registers per thread of the launch for (k, j),
+// into out[0..2]; returns the cudaError_t.
+template <bool kEdgeStore>
+int tick_residency(int k, int j, int* out) {
+  const TickLayout lay(k);
+  cudaError_t err = tick_prepare<kEdgeStore>(lay);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, tick_fn<kEdgeStore>(lay));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], tick_fn<kEdgeStore>(lay), 32 * lay.streams,
+      static_cast<size_t>(lay.bytes()));
+  out[1] = lay.streams;
+  out[2] = attr.numRegs;
+  return static_cast<int>(err);
+}
+
+// Launch one warp per stream row, lay.streams rows a block, on `stream`;
+// returns the launch's cudaError_t (0 on success), cudaErrorInvalidValue
+// when the layout for (k, j) exceeds the card's shared memory per block.
 template <bool kEdgeStore>
 int launch_tick(const float* q, const float* s_total, const float* s_max,
                 const float* strengths, const float* node_mask,
@@ -397,24 +640,16 @@ int launch_tick(const float* q, const float* s_total, const float* s_max,
                 EdgeStore store, int rows, int n, int k, int j,
                 int exact_smax, void* stream) {
   if (rows <= 0) return 0;
-  const long long smem = TickLayout(k, j).bytes();
-  if (smem > 48 * 1024) {
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const long long limit = tick_smem_limit(device);
-    if (limit < 0) return static_cast<int>(cudaGetLastError());
-    if (smem > limit) return static_cast<int>(cudaErrorInvalidValue);
-    err = cudaFuncSetAttribute(tick_kernel<kEdgeStore>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  tick_kernel<kEdgeStore><<<rows, kThreads, static_cast<size_t>(smem),
-                            static_cast<cudaStream_t>(stream)>>>(
+  const TickLayout lay(k);
+  const cudaError_t err = tick_prepare<kEdgeStore>(lay);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (rows + lay.streams - 1) / lay.streams;
+  const TickFn<kEdgeStore> fn = tick_fn<kEdgeStore>(lay);
+  fn<<<blocks, 32 * lay.streams, static_cast<size_t>(lay.bytes()),
+       static_cast<cudaStream_t>(stream)>>>(
       q, s_total, s_max, strengths, node_mask, senders, receivers, dw, w_old,
       emask, nid, nflag, dist, q_out, s_out, smax_out, str_out, mask_out,
-      store, n, k, j, exact_smax);
+      store, rows, n, k, j, exact_smax);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -151,13 +151,20 @@ def bsr_from_numpy(arrays: Mapping[str, np.ndarray], n: int, n_orig: int,
                    device: Device = None) -> BsrMatrix:
     """``{"values": (n_rb, max_bpr, b, b), "col_ids": (n_rb, max_bpr)}``
     of numpy arrays (a reference `BsrMatrix`'s fields) → the port's
-    `BsrMatrix` on ``device`` (``None`` is CUDA)."""
+    `BsrMatrix` on ``device`` (``None`` is CUDA).
+
+    The reference keeps no per-stripe count; ``counts`` is derived by its
+    own keep rule: a slot is real if its block has ``abs().sum() > 0``
+    (a padding slot has col 0 like a real block at column 0, so only the
+    values tell them apart), and the real slots come first."""
     device = resolve_device(device)
+    values = np.array(arrays["values"], np.float32)
+    counts = (np.abs(values).sum(axis=(2, 3)) > 0).sum(axis=1)
     return BsrMatrix(
-        values=torch.from_numpy(np.array(arrays["values"], np.float32))
-        .to(device),
+        values=torch.from_numpy(values).to(device),
         col_ids=torch.from_numpy(np.array(arrays["col_ids"], np.int32))
         .to(device),
+        counts=torch.from_numpy(counts.astype(np.int32)).to(device),
         n=int(n), n_orig=int(n_orig))
 
 

@@ -5,7 +5,8 @@ The port's copy of `repro.kernels.bsr_spmv.ref`:
 - `BsrMatrix` : the ELL-of-blocks layout, as tensors.
 - `dense_to_bsr` : the reference's host algorithm on an (n, n) matrix,
   line for line (blocks kept by ``abs().sum() > 0``, slots in ascending
-  column-block order, padding slots with col 0 and zero values).
+  column-block order, padding slots with col 0 and zero values), plus
+  each stripe's count of real slots, which the reference does not keep.
 - `edges_to_bsr` : the same `BsrMatrix` from an edge list, built on the
   device without an (n, n) matrix — the form for graphs of a few hundred
   thousand nodes, where the dense host matrix would be hundreds of GB.
@@ -31,12 +32,18 @@ class BsrMatrix:
     col_ids: (n_rb, max_bpr) int32 — column-block index of each slot, in
              ascending order; padding slots have col 0 and all-zero
              values, so any id is numerically safe
+    counts:  (n_rb,) int32 — the real slots of each stripe: slots
+             ``0 .. counts[r] - 1`` hold its blocks in ascending column
+             order, the rest is padding (a padding slot at index 0 has
+             col 0 like a real block at column 0; only this field, or the
+             values, tell them apart)
     n:       padded matrix dimension (n_rb · b)
     n_orig:  original dimension before padding
     """
 
     values: torch.Tensor
     col_ids: torch.Tensor
+    counts: torch.Tensor
     n: int
     n_orig: int
 
@@ -46,7 +53,8 @@ class BsrMatrix:
 
     def to(self, device) -> "BsrMatrix":
         return dataclasses.replace(self, values=self.values.to(device),
-                                   col_ids=self.col_ids.to(device))
+                                   col_ids=self.col_ids.to(device),
+                                   counts=self.counts.to(device))
 
 
 def _target(device: Device, *inputs) -> torch.device:
@@ -80,8 +88,10 @@ def dense_to_bsr(w, b: int = 128, device: Device = None) -> BsrMatrix:
         for k, cidx in enumerate(np.nonzero(nz[r])[0]):
             values[r, k] = tiles[r, cidx]
             col_ids[r, k] = cidx
+    counts = nz.sum(axis=1).astype(np.int32)
     return BsrMatrix(torch.from_numpy(values).to(dev),
-                     torch.from_numpy(col_ids).to(dev), n, n_orig)
+                     torch.from_numpy(col_ids).to(dev),
+                     torch.from_numpy(counts).to(dev), n, n_orig)
 
 
 def edges_to_bsr(senders, receivers, weights, n: int, b: int = 128,
@@ -118,7 +128,8 @@ def edges_to_bsr(senders, receivers, weights, n: int, b: int = 128,
     at = ((stripe[entry_block] * max_bpr + slot[entry_block]) * b
           + rows % b) * b + cols % b
     values[at] = torch.cat([w, w])
-    return BsrMatrix(values.view(n_rb, max_bpr, b, b), col_ids, n_pad, n)
+    return BsrMatrix(values.view(n_rb, max_bpr, b, b), col_ids,
+                     counts.to(torch.int32), n_pad, n)
 
 
 def bsr_density(m: BsrMatrix) -> float:
@@ -129,11 +140,14 @@ def bsr_density(m: BsrMatrix) -> float:
 
 def bsr_matvec_ref(m: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = W x on the BSR layout, one batched (b, b) @ (b,) product per
-    slot, summed in slot order."""
+    slot, summed in slot order; a stripe adds only its ``counts`` real
+    slots (a padding slot would add exact zeros, so y is the same bit for
+    bit as the sum over every slot)."""
     b = m.block
     n_rb, max_bpr = m.col_ids.shape
     gathered = x.view(n_rb, b)[m.col_ids.long()]  # (n_rb, max_bpr, b)
     y = torch.zeros((n_rb, b), dtype=torch.float32, device=x.device)
     for k in range(max_bpr):
-        y = y + torch.matmul(m.values[:, k], gathered[:, k, :, None])[..., 0]
+        part = torch.matmul(m.values[:, k], gathered[:, k, :, None])[..., 0]
+        y = torch.where((m.counts > k)[:, None], y + part, y)
     return y.reshape(-1)

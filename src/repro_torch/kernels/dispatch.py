@@ -197,6 +197,20 @@ def smem_limit(name: str, device: torch.device) -> int:
     return limit
 
 
+def residency(name: str, k: int, j: int) -> Dict[str, int]:
+    """How the tick kernel ``name`` sits on the card for k edge lanes and
+    j node slots: resident blocks per SM (CUDA's occupancy calculator),
+    streams per block, streams per SM and registers per thread."""
+    fn = getattr(library()[name], f"{name}_residency")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    check_launch(name, fn(k, j, ctypes.cast(out, ctypes.c_void_p)))
+    blocks, streams, regs = out
+    return {"blocks_per_sm": blocks, "streams_per_block": streams,
+            "streams_per_sm": blocks * streams, "registers": regs}
+
+
 def check_smem(name: str, k: int, j: int, device: torch.device) -> None:
     """Refuse by name a (k_pad, j_pad) whose shared-memory layout is
     above the card's per-block limit."""

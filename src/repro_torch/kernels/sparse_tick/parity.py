@@ -15,7 +15,11 @@ empty), and it adds the edge store:
   ``out_of_range``) at −1, which write nothing; row 2's masked lanes
   keep real slots;
 - row 0 empties its graph on the first tick (its store snaps to zero)
-  and revives on the second with joins and first edges into free slots.
+  and revives on the second with joins and first edges into free slots;
+- with ``kind="stress"``, the stress rows of `stream_tick.parity` (a hub
+  looped on every lane, a star, joins and leaves on touched nodes,
+  all-masked rows without node slots beside live ones), each lane with
+  its own slot; `STRESS` lists the shapes the card runs it at.
 
 `check` ticks both deltas through the kernel and the plain version
 (`ref.sparse_tick_ref`), and `compare` holds the kernel's outputs
@@ -42,6 +46,13 @@ from repro_torch.kernels.stream_tick import parity as st_parity
 ATOL, RTOL, DIV_FLOOR = st_parity.ATOL, st_parity.RTOL, st_parity.DIV_FLOOR
 
 Case = Tuple[SparseStreamState, GraphDelta, GraphDelta]
+# label: (B, n_slots, m_pad, k_pad, j_pad) of the stress case on the card
+STRESS = {
+    "k=37 ragged n, m": (64, 333, 777, 37, 3),
+    "serving k=128": (256, 1024, 8192, 128, 8),
+    "k=200 shared-memory sort": (64, 808, 1001, 200, 4),
+    "k=1024 opt-in": (32, 4104, 2100, 1024, 8),
+}
 
 
 def _unique_slots(rng, b: int, k: int, m: int) -> np.ndarray:
@@ -96,7 +107,8 @@ def _with_slots(deltas: GraphDelta, store: np.ndarray, rng,
 
 
 def make_case(b: int, n_slots: int, m_pad: int, k_pad: int, j_pad: int,
-              seed: int, device, out_of_range: bool = True) -> Case:
+              seed: int, device, out_of_range: bool = True,
+              kind: str = "edge_cases") -> Case:
     """A seeded (states, first deltas, second deltas) sparse batch of
     ``b`` ≥ 8 streams; rows 0–7 hold the named edge cases, the rest are
     random. ``out_of_range=False`` keeps every node id inside the slot
@@ -107,9 +119,11 @@ def make_case(b: int, n_slots: int, m_pad: int, k_pad: int, j_pad: int,
         raise ValueError("make_case needs m_pad >= 2*k_pad + 4")
     rng = np.random.default_rng(seed + 7919)
     fstate, d1 = st_parity.make_case(b, n_slots, k_pad, j_pad, seed,
-                                     device, out_of_range=out_of_range)
+                                     device, out_of_range=out_of_range,
+                                     kind=kind)
     _, d2 = st_parity.make_case(b, n_slots, k_pad, j_pad, seed + 1,
-                                device, out_of_range=out_of_range)
+                                device, out_of_range=out_of_range,
+                                kind=kind)
     store = np.where(rng.random((b, m_pad)) < 0.6,
                      rng.uniform(0.5, 1.5, (b, m_pad)),
                      0.0).astype(np.float32)

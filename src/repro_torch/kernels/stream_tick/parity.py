@@ -5,9 +5,18 @@ walks the kernel's edge cases: mixed-n node masks, padded edge lanes and
 join slots (id 0, mask or flag 0), ids outside ``[0, n_pad)``, repeated
 node ids and duplicate edges, a join and a leave of one node in one
 delta, an emptying delta, a revive from empty, an all-masked delta, and
-an all-masked delta on an empty graph. `compare` holds the kernel's
-outputs against the plain version's (`ref.stream_tick_ref`) on the same
-inputs. The CUDA tests and ``chip_smoke.py`` run both.
+an all-masked delta on an empty graph. ``kind="stress"`` adds rows
+8–14 that stress the kernel's split of a stream over one warp (at least
+16 streams): a hub whose segment spans all 2k endpoints (every lane a
+loop on it), a star whose hub is one endpoint of every lane (a segment
+of k endpoints across the lanes), joins of dead nodes that are
+endpoints of live lanes and leaves of live endpoints, and all-masked
+rows without node slots beside live ones. `STRESS` lists the shapes
+the card runs it at: k odd, at the serving k, and above the 256 keys a
+warp sorts in registers (the shared-memory sort, and k = 1024 with the
+opt-in above 48 KB). `compare` holds the kernel's outputs against the
+plain version's (`ref.stream_tick_ref`) on the same inputs. The CUDA
+tests and ``chip_smoke.py`` run both.
 
 Tolerance. Carried state: atol 1e-5 with rtol 1e-5 (the reference's
 kernel parity tolerance; sums run in another order on the card). Masks:
@@ -30,18 +39,30 @@ from repro_torch.graphs.types import GraphDelta
 ATOL = 1e-5
 RTOL = 1e-5
 DIV_FLOOR = 1e-3
+KINDS = ("edge_cases", "stress")
+# label: (B, n_pad, k_pad, j_pad) of the stress case on the card
+STRESS = {
+    "k=37 ragged n": (64, 333, 37, 3),
+    "serving k=128": (256, 1024, 128, 8),
+    "k=200 shared-memory sort": (64, 808, 200, 4),
+    "k=1024 opt-in": (32, 4104, 1024, 8),
+}
 
 
 def make_case(b: int, n_pad: int, k_pad: int, j_pad: int, seed: int,
-              device, out_of_range: bool = True
+              device, out_of_range: bool = True, kind: str = "edge_cases"
               ) -> Tuple[FingerState, GraphDelta]:
     """A seeded (states, deltas) batch of ``b`` ≥ 8 streams; rows 0–7
-    hold the named edge cases, the rest are random. ``out_of_range=False``
+    hold the named edge cases, with ``kind="stress"`` rows 8–14 the
+    stress rows (``b`` ≥ 16), the rest are random. ``out_of_range=False``
     keeps every id inside the layout (the JAX reference clamps such ids
     where the port gates them)."""
-    if b < 8 or n_pad < 4 * k_pad + 8 or j_pad < 2:
-        raise ValueError("make_case needs b >= 8, n_pad >= 4*k_pad + 8 "
-                         "and j_pad >= 2")
+    if kind not in KINDS:
+        raise ValueError(f"unknown stream_tick case kind {kind!r}")
+    if b < (16 if kind == "stress" else 8) or n_pad < 4 * k_pad + 8 \
+            or j_pad < 2:
+        raise ValueError("make_case needs b >= 8 (16 for the stress rows), "
+                         "n_pad >= 4*k_pad + 8 and j_pad >= 2")
     rng = np.random.default_rng(seed)
     f32 = np.float32
     ns = rng.integers(max(n_pad // 4, 2 * k_pad + 4), n_pad + 1, b)
@@ -51,7 +72,8 @@ def make_case(b: int, n_pad: int, k_pad: int, j_pad: int, seed: int,
     k_used = rng.integers(0, k_pad + 1, b)
     lane = np.arange(k_pad)[None, :]
     emask = (lane < k_used[:, None]).astype(f32)
-    hi = (ns + 2)[:, None]  # a few ids land on inactive slots
+    # a few ids land on inactive slots, or past n_pad when allowed
+    hi = (ns + 2 if out_of_range else np.minimum(ns + 2, n_pad))[:, None]
     snd = rng.integers(0, 1 << 30, (b, k_pad)) % hi
     rcv = rng.integers(0, 1 << 30, (b, k_pad)) % hi
     rcv = np.where(rcv == snd, (snd + 1) % n_pad, rcv)
@@ -108,9 +130,14 @@ def make_case(b: int, n_pad: int, k_pad: int, j_pad: int, seed: int,
     emask[2:4] = 0.0
     nflag[2:4] = 0.0
 
-    # padded lanes carry id 0; row 2 keeps real ids on its masked lanes
+    keep_ids = [2]  # rows whose masked lanes keep real ids
+    if kind == "stress":
+        _stress_rows(rng, ns, mask, strengths, snd, rcv, dw, w_old, emask,
+                     nid, nflag)
+        keep_ids += [11, 13]
+    # padded lanes carry id 0; the rows above keep real ids on masked lanes
     pad = emask == 0
-    pad[2] = False
+    pad[keep_ids] = False
     snd, rcv = np.where(pad, 0, snd), np.where(pad, 0, rcv)
     s_total = strengths.astype(np.float64).sum(1).astype(f32)
     s_max = strengths.max(1)
@@ -130,6 +157,47 @@ def make_case(b: int, n_pad: int, k_pad: int, j_pad: int, seed: int,
         mask=t(emask, torch.float32), n_nodes=n_pad,
         node_ids=t(nid, torch.int32), node_flag=t(nflag, torch.float32))
     return states, deltas
+
+
+def _stress_rows(rng, ns, mask, strengths, snd, rcv, dw, w_old, emask,
+                 nid, nflag) -> None:
+    """Rows 8–14 of the stress case, in place on the numpy batch."""
+    k, j = snd.shape[1], nid.shape[1]
+    lanes = np.arange(k)
+    emask[8:11] = 1.0
+    nflag[8:10] = 0.0
+    # row 8: every lane a loop on one hub, so its segment spans all 2k
+    # endpoints of the sorted keys
+    hub = int(ns[8]) // 2
+    snd[8], rcv[8] = hub, hub
+    # row 9: a star, its hub one endpoint of every lane
+    hub = int(ns[9]) // 3
+    other = np.setdiff1d(np.arange(ns[9]), [hub])[:k]
+    snd[9] = np.where(lanes % 2 == 0, hub, other)
+    rcv[9] = np.where(lanes % 2 == 0, other, hub)
+    # row 10: dead nodes join and are endpoints of live lanes; live
+    # endpoints leave
+    n_live = int(mask.shape[1]) - 8
+    mask[10] = 0.0
+    mask[10, :n_live] = 1.0
+    strengths[10, n_live:] = 0.0
+    snd[10] = rng.integers(0, n_live, k)
+    rcv[10] = (snd[10] + 1 + rng.integers(0, n_live - 1, k)) % n_live
+    joiners = n_live + np.arange(min(j, 3))
+    snd[10, :joiners.size] = joiners
+    rcv[10, joiners.size] = joiners[0]
+    nid[10], nflag[10] = 0, 0.0
+    nid[10, :joiners.size - 1] = joiners[:-1]
+    nflag[10, :joiners.size - 1] = 1.0
+    nid[10, joiners.size - 1] = rcv[10, 0]
+    nflag[10, joiners.size - 1] = -1.0
+    if j > 3:
+        nid[10, 3] = snd[10, k - 1]
+        nflag[10, 3] = -1.0
+    # rows 11 and 13: every lane masked and no node slot, beside the live
+    # random rows 12 and 14
+    emask[[11, 13]] = 0.0
+    nflag[[11, 13]] = 0.0
 
 
 def compare(got: Tuple[torch.Tensor, FingerState],

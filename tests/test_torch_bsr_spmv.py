@@ -13,13 +13,18 @@ version on the card (`tests/test_torch_cuda_kernels.py`,
 
 Tolerances: the layout exactly (`dense_to_bsr` against the reference's
 arrays, `edges_to_bsr` against `dense_to_bsr` bit for bit, duplicates
-and zero weights included); y at atol 1e-5 with rtol 1e-5; λ_max at
+and zero weights included; each stripe's ``counts`` against the blocks
+the reference keeps); y at atol 1e-5 with rtol 1e-5, and bit for bit
+between the plain version, which adds only each stripe's real slots, and
+a sum over every slot; λ_max at
 rtol 1e-5 against the reference's iteration from the same start vector
 (the reference's own ``jax.random.normal(PRNGKey(seed))`` draw, fed
 through ``x0=``), and at 1e-2 against the exact λ_max, the tolerance of
 the reference's own test (`tests/test_kernels.py::TestBsrSpmv`): the
 community graphs have near-degenerate top eigenvalues.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -105,6 +110,7 @@ def test_edges_to_bsr_equals_dense_to_bsr_bit_for_bit(n, b, graph):
     assert (got.n, got.n_orig) == (want.n, want.n_orig)
     assert torch.equal(got.col_ids, want.col_ids)
     assert torch.equal(got.values, want.values)
+    assert torch.equal(got.counts, want.counts)
 
 
 def test_edges_to_bsr_of_no_edges_is_all_padding():
@@ -112,6 +118,90 @@ def test_edges_to_bsr_of_no_edges_is_all_padding():
                      np.zeros(0, np.float32), 200, b=64, device="cpu")
     assert tuple(m.values.shape) == (4, 1, 64, 64) and m.n == 256
     assert not m.values.any() and not m.col_ids.any()
+    assert m.counts.dtype == torch.int32 and m.counts.tolist() == [0] * 4
+
+
+def _kept_blocks(w: np.ndarray, b: int) -> np.ndarray:
+    """Blocks per stripe that the reference's `dense_to_bsr` keeps: its
+    own rule, ``abs().sum() > 0`` per (b, b) tile of the padded W."""
+    jm = jref.dense_to_bsr(w, b=b)
+    wp = np.zeros((jm.n, jm.n), np.float32)
+    wp[:w.shape[0], :w.shape[0]] = w
+    r = jm.n // b
+    tiles = wp.reshape(r, b, r, b).transpose(0, 2, 1, 3)
+    kept = (np.abs(tiles).sum(axis=(2, 3)) > 0).sum(axis=1)
+    # the reference's slots: its kept blocks first, then padding
+    vals = np.array(jm.values)
+    assert (np.abs(vals).sum(axis=(2, 3)) > 0).sum(axis=1).tolist() \
+        == kept.tolist()
+    return kept
+
+
+@pytest.mark.parametrize("n,b,graph", LAYOUTS)
+def test_counts_equal_the_blocks_the_reference_keeps(n, b, graph):
+    """`dense_to_bsr`, `edges_to_bsr` and `interop.bsr_from_numpy` (of
+    the reference's arrays) give each stripe's count of real slots, and
+    those slots come first."""
+    w = _weights(n, graph)
+    want = _kept_blocks(w, b)
+    iu, ju = np.triu_indices(n, 1)
+    live = w[iu, ju] != 0
+    jm = jref.dense_to_bsr(w, b=b)
+    arrays = {"values": np.array(jm.values), "col_ids": np.array(jm.col_ids)}
+    for m in (dense_to_bsr(w, b=b, device="cpu"),
+              edges_to_bsr(iu[live], ju[live], w[iu, ju][live], n, b=b,
+                           device="cpu"),
+              interop.bsr_from_numpy(arrays, jm.n, jm.n_orig, device="cpu")):
+        assert m.counts.dtype == torch.int32
+        assert m.counts.tolist() == want.tolist()
+        real = m.values.abs().sum((2, 3)) > 0
+        slots = torch.arange(m.col_ids.shape[1])[None, :]
+        assert torch.equal(real, slots < m.counts[:, None].long())
+    # the arrays that cross to the reference are still exactly its own
+    back, _, _ = interop.bsr_to_numpy(dense_to_bsr(w, b=b, device="cpu"))
+    assert sorted(back) == ["col_ids", "values"]
+    np.testing.assert_array_equal(back["values"], arrays["values"])
+    np.testing.assert_array_equal(back["col_ids"], arrays["col_ids"])
+
+
+@pytest.mark.parametrize("label", list(parity.CASES))
+def test_plain_matvec_with_counts_equals_the_every_slot_sum(label):
+    """The plain version adds each stripe's real slots only; summing
+    every slot, padding included, gives the same y bit for bit."""
+    n, b, kind = parity.CASES[label]
+    m, x = parity.make_case(min(n, 4096), b, seed=4, device="cpu",
+                            kind=kind)
+    n_rb, max_bpr = m.col_ids.shape
+    gathered = x.view(n_rb, b)[m.col_ids.long()]
+    every = torch.zeros((n_rb, b))
+    for k in range(max_bpr):
+        every = every + torch.matmul(m.values[:, k],
+                                     gathered[:, k, :, None])[..., 0]
+    assert torch.equal(bsr_matvec_ref(m, x), every.reshape(-1))
+    if kind == "uneven":
+        counts = m.counts.tolist()
+        assert counts[0] == max_bpr and 1 in counts and counts[-1] == 0
+    if kind == "empty_stripe":
+        assert int(m.counts[1]) == 0
+
+
+def test_bad_counts_are_refused_by_name():
+    m, x = parity.make_case(1000, 64, seed=0, device="cpu")
+    max_bpr = m.col_ids.shape[1]
+    bad = {
+        "int32": m.counts.long(),
+        "max_bpr": m.counts.clone().fill_(max_bpr + 1),
+        "0, max_bpr": torch.where(torch.arange(m.counts.numel()) == 3,
+                                  -1, m.counts).to(torch.int32),
+        r"\(n_rb,\)": m.counts[None, :],
+    }
+    for match, counts in bad.items():
+        with pytest.raises((TypeError, ValueError), match=match):
+            ops.bsr_matvec(dataclasses.replace(m, counts=counts), x)
+    order = ops.stripe_order(m.counts, max_bpr)
+    assert order.dtype == torch.int32
+    got = m.counts[order.long()]
+    assert torch.equal(got, m.counts.sort(descending=True, stable=True)[0])
 
 
 @pytest.mark.parametrize("n,b,graph", LAYOUTS)

@@ -13,7 +13,9 @@ score compared as a divergence (see `stream_tick.parity`); ``vnge_q``
 at rtol 3e-5 and ``entropy_probe`` at rtol 5e-4 (atol 1e-5), the
 reference's own kernel-test tolerances; ``bsr_spmv`` at atol 1e-5 with
 rtol 1e-5, and λ_max of its power iteration at rtol 1e-5 against the
-plain version's from the same start vector.
+plain version's from the same start vector. Two launches on the same
+inputs, and an in-place tick against an out-of-place one, agree bit for
+bit.
 """
 import dataclasses
 
@@ -24,6 +26,7 @@ import torch
 from repro_torch.core.jsdist import jsdist_stream
 from repro_torch.core.sparse import stack_sparse_states
 from repro_torch.engine.stream import stack_deltas, stack_states
+from repro_torch.kernels import dispatch
 from repro_torch.kernels.bsr_spmv import ops as bs_ops
 from repro_torch.kernels.bsr_spmv import parity as bs_parity
 from repro_torch.kernels.bsr_spmv.ref import bsr_matvec_ref
@@ -70,8 +73,9 @@ def test_stream_tick_matches_plain(cuda, shape, exact):
 
 @pytest.mark.parametrize("shape", [(64, 4200, 1024, 4), (256, 300, 40, 2)])
 def test_stream_tick_large_k_and_no_node_slots(cuda, shape):
-    """k_pad = 1024 needs ~98 KB of shared memory (the opt-in above
-    48 KB); the second shape drops the node slots (j = 0, no pointers)."""
+    """k_pad = 1024 needs about 81 KB of shared memory a block of four
+    streams (the opt-in above 48 KB); the second shape drops the node
+    slots (j = 0, no pointers)."""
     states, deltas = st_parity.make_case(*shape, seed=7, device=cuda)
     if shape[2] < 1024:
         deltas = dataclasses.replace(deltas, node_ids=None, node_flag=None)
@@ -108,6 +112,40 @@ def test_stream_tick_in_place_matches_out_of_place(cuda):
     for a, b in zip([got[0], *got[1].tensors().values()],
                     [want[0], *want[1].tensors().values()]):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("label", list(st_parity.STRESS))
+def test_stream_tick_stress_cases(cuda, label):
+    """The stress rows (a hub looped on every lane, a star, joins and
+    leaves on touched nodes, all-masked rows beside live ones) at k odd,
+    at the serving k and above the register sort: the kernel against the
+    plain version, in place against out of place bit for bit, and two
+    launches bit-equal."""
+    states, deltas = st_parity.make_case(*st_parity.STRESS[label], seed=5,
+                                         device=cuda, kind="stress")
+    for exact in (False, True):
+        got = st_ops.stream_tick_fused(states, deltas, exact_smax=exact)
+        st_parity.compare(got, stream_tick_ref(states, deltas,
+                                               exact_smax=exact), label)
+        again = st_ops.stream_tick_fused(states, deltas, exact_smax=exact)
+        copy = states.map_tensors(torch.clone)
+        inplace = st_ops.stream_tick_fused(copy, deltas, exact_smax=exact,
+                                           inplace=True)
+        for other in (again, inplace):
+            for a, b in zip([got[0], *got[1].tensors().values()],
+                            [other[0], *other[1].tensors().values()]):
+                torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_stream_tick_residency(cuda):
+    """At the serving size a block holds 8 streams and the card keeps at
+    least 24 streams on an SM; the shared-memory sort holds fewer."""
+    serving = dispatch.residency("stream_tick", 128, 8)
+    assert serving["streams_per_block"] == 8
+    assert serving["streams_per_sm"] >= 24
+    big = dispatch.residency("stream_tick", 1024, 8)
+    assert 1 <= big["streams_per_sm"] < serving["streams_per_sm"]
+    assert st_ops.stream_tick_smem_bytes(1024, 8) > 48 * 1024
 
 
 def test_stream_tick_refuses_too_much_shared_memory(cuda):
@@ -214,6 +252,28 @@ def test_sparse_tick_without_node_slots(cuda):
                           "sparse_tick without node slots")
 
 
+@pytest.mark.parametrize("label", list(sp_parity.STRESS))
+def test_sparse_tick_stress_cases(cuda, label):
+    """The stress rows over the slot axis with the edge store, two ticks
+    (row 0 empties, then revives): the kernel against the plain version;
+    then the first tick in place against out of place bit for bit, and
+    two launches bit-equal."""
+    states, d1, d2 = sp_parity.make_case(*sp_parity.STRESS[label], seed=5,
+                                         device=cuda, kind="stress")
+    for exact in (False, True):
+        sp_parity.check(
+            lambda s, d, e: sp_ops.sparse_tick_fused(s, d, exact_smax=e),
+            (states, d1, d2), exact, label)
+    got = sp_ops.sparse_tick_fused(states, d1, exact_smax=True)
+    again = sp_ops.sparse_tick_fused(states, d1, exact_smax=True)
+    inplace = sp_ops.sparse_tick_fused(states.map_tensors(torch.clone), d1,
+                                       exact_smax=True, inplace=True)
+    for other in (again, inplace):
+        for a, b in zip([got[0], *got[1].tensors().values()],
+                        [other[0], *other[1].tensors().values()]):
+            torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
 def test_sparse_tick_refuses_too_much_shared_memory(cuda):
     states, d1, _ = sp_parity.make_case(8, 40000, 20000, 9000, 2, seed=0,
                                         device=cuda)
@@ -286,17 +346,34 @@ def test_bsr_matvec_repeats_bit_for_bit(cuda):
     torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
+def test_bsr_matvec_uneven_counts_repeat_bit_for_bit(cuda):
+    """Stripes of max_bpr, 1–3 and 0 real slots, launched longest first:
+    two launches agree bit for bit, and with the plain version."""
+    n, b, kind = bs_parity.CASES["uneven counts n=2000 b=64"]
+    m, x = bs_parity.make_case(n, b, seed=6, device=cuda, kind=kind)
+    counts = m.counts.tolist()
+    assert counts[0] == m.col_ids.shape[1] and counts[-1] == 0
+    a, b = bs_ops.bsr_matvec(m, x), bs_ops.bsr_matvec(m, x)
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+    bs_parity.compare(a, bsr_matvec_ref(m, x), "uneven counts")
+
+
 def test_bsr_matvec_refuses_by_name(cuda):
     m, x = bs_parity.make_case(300, 128, seed=0, device=cuda)
     with pytest.raises(ValueError, match="b in"):
         bs_ops.bsr_matvec_cuda(m.values[:, :, :32, :32].contiguous(),
-                               m.col_ids, x[:96].contiguous())
+                               m.col_ids, m.counts, x[:96].contiguous())
     with pytest.raises(TypeError, match="float32"):
-        bs_ops.bsr_matvec_cuda(m.values, m.col_ids, x.double())
+        bs_ops.bsr_matvec_cuda(m.values, m.col_ids, m.counts, x.double())
     with pytest.raises(ValueError, match="not contiguous"):
-        bs_ops.bsr_matvec_cuda(m.values.transpose(2, 3), m.col_ids, x)
+        bs_ops.bsr_matvec_cuda(m.values.transpose(2, 3), m.col_ids,
+                               m.counts, x)
     with pytest.raises(TypeError, match="int32"):
-        bs_ops.bsr_matvec_cuda(m.values, m.col_ids.long(), x)
+        bs_ops.bsr_matvec_cuda(m.values, m.col_ids.long(), m.counts, x)
+    with pytest.raises(TypeError, match="counts"):
+        bs_ops.bsr_matvec_cuda(m.values, m.col_ids, m.counts.long(), x)
+    with pytest.raises(ValueError, match="counts must lie"):
+        bs_ops.bsr_matvec_cuda(m.values, m.col_ids, m.counts + 99, x)
 
 
 def test_bsr_power_iteration_launches_and_matches_plain(cuda):

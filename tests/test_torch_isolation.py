@@ -231,7 +231,7 @@ def test_kernel_entry_points_refuse_cpu_tensors():
         ep_ops.graph_stats_cuda(x, x[:, 0], x[:, 0])
     m, x = bs_parity.make_case(300, 128, seed=0, device="cpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
-        bs_ops.bsr_matvec_cuda(m.values, m.col_ids, x)
+        bs_ops.bsr_matvec_cuda(m.values, m.col_ids, m.counts, x)
 
 
 def test_parity_discovery_covers_every_kernel_and_fails_by_name(tmp_path):

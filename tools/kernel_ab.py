@@ -1,0 +1,363 @@
+#!/usr/bin/env python3
+"""Time the tick and BSR kernels of this checkout against those of
+another one, on one NVIDIA GPU, on the same inputs.
+
+    python3 tools/kernel_ab.py --baseline DIR [--change DIR] [--seed S]
+
+Each ``DIR`` holds a checkout's ``src/repro_torch/csrc`` sources (for
+example ``git archive <commit> src/repro_torch/csrc | tar -x -C DIR``);
+the change defaults to this checkout. Both sets are built with the
+port's ``nvcc`` flags plus ``-Xptxas -v`` (registers and spills are
+printed) and loaded with ctypes, and each kernel runs in turns,
+baseline, change, change, baseline, CUDA-event means of each turn
+printed. The change must export the residency and the per-stripe BSR
+interface of this checkout. Inputs, from ``--seed``:
+
+- ``stream_tick`` in place on the serving-size stress batch of
+  `kernels/stream_tick/parity.py` (32768 streams, n_pad 1024, k_pad 128,
+  j_pad 8), the state restored before every call; also with every edge
+  lane masked and with the first 32 lanes only, and out of place at
+  B = 4096, 8192, 16384 and 32768 (the time a wave of resident streams
+  takes); each launch's resident blocks and streams per SM (the
+  baseline's from CUDA's occupancy calculator on its own kernel);
+- ``sparse_tick`` in place on the sparse serving-size stress batch
+  (4096 streams, n_slots 1024, m_pad 8192);
+- ``bsr_matvec`` on the offline phase's three 2¹⁸-node graphs
+  (`chip_smoke.offline_edges`), where the change's y must equal the
+  baseline's bit for bit.
+
+The change's outputs are held against the plain versions (the parity
+modules' tolerances), and the two sets against each other. Prints the
+card's name and power limit first and writes every number to
+``build/kernel_ab.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+# the residency of a baseline tick kernel that does not export it (one
+# block of kThreads a stream): CUDA's occupancy calculator on its own
+# instantiation, at its own block size and shared memory
+OCCUPANCY_SRC = r"""
+#include "tick_kernel.cuh"
+REPRO_EXPORT int baseline_tick_residency(int k, int j, int* out) {
+  const long long smem = TickLayout(k, j).bytes();
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(tick_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  cudaFuncAttributes attr;
+  cudaFuncGetAttributes(&attr, tick_kernel<false>);
+  out[1] = 1;
+  out[2] = attr.numRegs;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], tick_kernel<false>, kThreads, static_cast<size_t>(smem)));
+}
+"""
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+BATCH = 32768  # the serving size of chip_smoke.py phase 3
+
+
+def build(csrc: Path, out: Path, stems, extra=None) -> dict:
+    """nvcc each source (and ``extra`` {stem: text}) into ``out``, all
+    started together; print ptxas' register lines; load with ctypes."""
+    from repro_torch.kernels import dispatch
+
+    out.mkdir(parents=True, exist_ok=True)
+    srcs = {s: csrc / f"{s}.cu" for s in stems}
+    for stem, text in (extra or {}).items():
+        srcs[stem] = out / f"{stem}.cu"
+        srcs[stem].write_text(text)
+    procs = {}
+    for stem, src in srcs.items():
+        cmd = [dispatch._nvcc(), *dispatch.NVCC_FLAGS, "-Xptxas", "-v",
+               "-I", str(csrc), "-o", str(out / f"lib{stem}.so"), str(src)]
+        procs[stem] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for stem, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {stem} failed:\n{text}")
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  [{csrc.parent.parent.parent.name}/{stem}] "
+                      f"{line.strip()}")
+        libs[stem] = ctypes.CDLL(str(out / f"lib{stem}.so"))
+    return libs
+
+
+def tick_launch(lib, name, states, deltas, exact, inplace, store=False):
+    """One launch of a tick library's ``<name>_launch`` on the given
+    tensors; returns (dist, output tensors)."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+
+    fields = ["q", "s_total", "s_max", "strengths", "node_mask"]
+    if store:
+        fields.append("edge_weights")
+    st = [getattr(states, f) for f in fields]
+    dl = [deltas.senders, deltas.receivers, deltas.dw, deltas.w_old,
+          deltas.mask] + ([deltas.edge_slots] if store else [])
+    outs = st if inplace else [torch.empty_like(t) for t in st]
+    dist = torch.empty_like(states.q)
+    rows = states.q.numel()
+    n, k = states.strengths.shape[-1], deltas.dw.shape[-1]
+    j = deltas.node_ids.shape[-1]
+    fn = getattr(lib, f"{name}_launch")
+    dims = [rows, n] + ([states.edge_weights.shape[-1]] if store else []) \
+        + [k, j, int(exact)]
+    fn.argtypes = [_P] * (len(st) + len(dl) + 3 + len(outs)) \
+        + [_I] * len(dims) + [_P]
+    fn.restype = _I
+    err = fn(*(t.data_ptr() for t in st + dl), deltas.node_ids.data_ptr(),
+             deltas.node_flag.data_ptr(), dist.data_ptr(),
+             *(t.data_ptr() for t in outs), *dims,
+             dispatch.stream_handle(states.q.device))
+    if err:
+        raise RuntimeError(f"{name} launch error {err}")
+    return dist, outs
+
+
+def residency(lib, fn_name, k, j):
+    out = (ctypes.c_int * 3)()
+    fn = getattr(lib, fn_name)
+    fn.argtypes, fn.restype = [_I, _I, _P], _I
+    if fn(k, j, ctypes.cast(out, _P)):
+        raise RuntimeError(f"{fn_name} failed")
+    blocks, streams, regs = out
+    return {"blocks_per_sm": blocks, "streams_per_block": streams,
+            "streams_per_sm": blocks * streams, "registers": regs}
+
+
+def turns(label, fns, reps, setup=None):
+    """CUDA-event means of baseline, change, change, baseline."""
+    from chip_smoke import cuda_ms
+
+    got = {"baseline": [], "change": []}
+    for who in ("baseline", "change", "change", "baseline"):
+        got[who].append(cuda_ms(fns[who], reps, setup=setup))
+    print(f"  {label}: baseline {got['baseline'][0]:.4f} / "
+          f"{got['baseline'][1]:.4f} ms, change {got['change'][0]:.4f} / "
+          f"{got['change'][1]:.4f} ms")
+    return got
+
+
+def ab_stream_tick(libs, base, args, res):
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.stream_tick import parity as st_parity
+    from repro_torch.kernels.stream_tick.ref import stream_tick_ref
+
+    dev = torch.device("cuda")
+    k, j = 128, 8
+    res["stream_tick_residency"] = {
+        "baseline": residency(*base["residency"], k, j),
+        "change": residency(libs["stream_tick"], "stream_tick_residency",
+                            k, j)}
+    print(f"  stream_tick residency at k={k}, j={j}: "
+          f"{res['stream_tick_residency']}")
+    states, deltas = st_parity.make_case(BATCH, 1024, k, j,
+                                         seed=args.seed, device=dev,
+                                         kind="stress")
+    want = stream_tick_ref(states, deltas, exact_smax=True)
+    got = {w: tick_launch(lib, "stream_tick", states, deltas, True, False)
+           for w, lib in (("baseline", base["stream_tick"]),
+                          ("change", libs["stream_tick"]))}
+    again = tick_launch(libs["stream_tick"], "stream_tick", states, deltas,
+                        True, False)
+    from repro_torch.core.state import FingerState
+
+    def as_state(r):
+        return r[0], FingerState(*r[1], layout=states.layout)
+
+    for w in got:
+        st_parity.compare(as_state(got[w]), want, f"stream_tick {w}")
+    same = all(torch.equal(a, b) for a, b in zip(
+        [again[0], *again[1]], [got["change"][0], *got["change"][1]]))
+    print(f"  stream_tick B={BATCH}: both sets match the plain "
+          f"version; the change's two launches bit-equal: {same}")
+    if not same:
+        raise AssertionError("stream_tick: two launches differ")
+    work = states.map_tensors(torch.clone)
+
+    def restore():
+        for f in ("q", "s_total", "s_max", "strengths", "node_mask"):
+            getattr(work, f).copy_(getattr(states, f))
+
+    def inplace(lib, d):
+        return lambda: tick_launch(lib, "stream_tick", work, d, True, True)
+
+    masked = dataclasses.replace(deltas, mask=torch.zeros_like(deltas.mask))
+    first32 = dataclasses.replace(deltas, **{
+        f: getattr(deltas, f)[:, :32].contiguous()
+        for f in ("senders", "receivers", "dw", "w_old", "mask")})
+    for label, d in (("in place", deltas), ("every lane masked", masked),
+                     ("first 32 lanes", first32)):
+        res[f"stream_tick {label}"] = turns(
+            f"stream_tick {label} B={BATCH}",
+            {"baseline": inplace(base["stream_tick"], d),
+             "change": inplace(libs["stream_tick"], d)}, 10, setup=restore)
+    for b in (4096, 8192, 16384, 32768):
+        sub = states.map_tensors(lambda t: t[:b])
+        dsub = deltas.map_tensors(lambda t: t[:b])
+        res[f"stream_tick out of place B={b}"] = turns(
+            f"stream_tick out of place B={b}",
+            {w: (lambda lib=lib: tick_launch(lib, "stream_tick", sub, dsub,
+                                             True, False))
+             for w, lib in (("baseline", base["stream_tick"]),
+                            ("change", libs["stream_tick"]))}, 10)
+
+
+def ab_sparse_tick(libs, base, args, res):
+    import torch
+
+    from repro_torch.core.sparse import SparseStreamState
+    from repro_torch.kernels.sparse_tick import parity as sp_parity
+    from repro_torch.kernels.sparse_tick.ref import sparse_tick_ref
+
+    dev = torch.device("cuda")
+    states, d1, _ = sp_parity.make_case(4096, 1024, 8192, 128, 8,
+                                        seed=args.seed, device=dev,
+                                        kind="stress")
+    want = sparse_tick_ref(states, d1, exact_smax=True)
+    for w, lib in (("baseline", base["sparse_tick"]),
+                   ("change", libs["sparse_tick"])):
+        r = tick_launch(lib, "sparse_tick", states, d1, True, False, True)
+        sp_parity.compare((r[0], SparseStreamState(*r[1],
+                                                   layout=states.layout)),
+                          want, f"sparse_tick {w}")
+    work = states.map_tensors(torch.clone)
+
+    def restore():
+        for f in ("q", "s_total", "s_max", "strengths", "node_mask",
+                  "edge_weights"):
+            getattr(work, f).copy_(getattr(states, f))
+
+    res["sparse_tick in place"] = turns(
+        "sparse_tick in place B=4096",
+        {w: (lambda lib=lib: tick_launch(lib, "sparse_tick", work, d1, True,
+                                         True, True))
+         for w, lib in (("baseline", base["sparse_tick"]),
+                        ("change", libs["sparse_tick"]))}, 20,
+        setup=restore)
+
+
+def ab_bsr(libs, base, args, res):
+    import torch
+
+    from chip_smoke import OFF_B, OFF_N, offline_edges
+    from repro_torch.kernels.bsr_spmv import ops as bs_ops
+    from repro_torch.kernels.bsr_spmv import parity as bs_parity
+    from repro_torch.kernels.bsr_spmv.ref import bsr_matvec_ref, edges_to_bsr
+
+    dev = torch.device("cuda")
+
+    def launcher(lib):
+        """The library's bsr_matvec_launch: with the per-stripe counts
+        and order if it takes them, else over every slot."""
+        fn = lib.bsr_matvec_launch
+        counted = (base_counted if lib is base["bsr_spmv"] else True)
+        fn.argtypes = [_P] * (6 if counted else 4) + [_I] * 3 + [_P]
+        fn.restype = _I
+
+        def call(m, x, order):
+            y = torch.empty_like(x)
+            n_rb, max_bpr, b, _ = m.values.shape
+            extra = [m.counts.data_ptr(), order.data_ptr()] if counted \
+                else []
+            if fn(m.values.data_ptr(), m.col_ids.data_ptr(), *extra,
+                  x.data_ptr(), y.data_ptr(), n_rb, max_bpr, b,
+                  torch.cuda.current_stream().cuda_stream):
+                raise RuntimeError("bsr_matvec launch failed")
+            return y
+        return call
+
+    base_counted = "counts" in (args.baseline.resolve() / "src" /
+                                "repro_torch" / "csrc" /
+                                "bsr_spmv.cu").read_text()
+    baseline, change = launcher(base["bsr_spmv"]), launcher(libs["bsr_spmv"])
+
+    t0 = time.perf_counter()
+    edges = offline_edges(args.seed)
+    print(f"  offline graphs drawn in {time.perf_counter() - t0:.1f} s")
+    for name, e in edges.items():
+        m = edges_to_bsr(*e, OFF_N, b=OFF_B, device=dev)
+        order = bs_ops.stripe_order(m.counts, m.col_ids.shape[1])
+        x = torch.randn(m.n, generator=torch.Generator().manual_seed(2)) \
+            .to(dev)
+        a = baseline(m, x, order)
+        c = change(m, x, order)
+        bs_parity.compare(c, bsr_matvec_ref(m, x), f"bsr_matvec {name}")
+        equal = bool(torch.equal(a, c))
+        print(f"  bsr_matvec {name}: max_bpr {m.col_ids.shape[1]}, real "
+              f"slots {int(m.counts.sum())} of {m.col_ids.numel()}; y "
+              f"bit-equal to the baseline: {equal}")
+        if not equal:
+            raise AssertionError(f"bsr_matvec {name}: y differs from the "
+                                 "baseline's")
+        res[f"bsr_matvec {name}"] = turns(
+            f"bsr_matvec {name}",
+            {"baseline": lambda: baseline(m, x, order),
+             "change": lambda: change(m, x, order)}, 20)
+        del m, x, a, c
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--baseline", required=True, type=Path)
+    ap.add_argument("--change", type=Path, default=ROOT)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip()
+    print(f"card: {card}")
+    base_csrc = args.baseline.resolve() / "src" / "repro_torch" / "csrc"
+    print("building the baseline and the change with -Xptxas -v:")
+    # a baseline without its own residency export gets the helper
+    own = "stream_tick_residency" in (base_csrc / "stream_tick.cu") \
+        .read_text()
+    base = build(base_csrc, ROOT / "build" / "kernel_ab" / "baseline",
+                 ("stream_tick", "sparse_tick", "bsr_spmv"),
+                 None if own else {"occupancy": OCCUPANCY_SRC})
+    base["residency"] = ((base["stream_tick"], "stream_tick_residency")
+                         if own else
+                         (base["occupancy"], "baseline_tick_residency"))
+    libs = build(args.change.resolve() / "src" / "repro_torch" / "csrc",
+                 ROOT / "build" / "kernel_ab" / "change",
+                 ("stream_tick", "sparse_tick", "bsr_spmv"))
+    res = {"card": card}
+    ab_stream_tick(libs, base, args, res)
+    ab_sparse_tick(libs, base, args, res)
+    ab_bsr(libs, base, args, res)
+    out = ROOT / "build" / "kernel_ab.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps(res, indent=1))
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
