@@ -14,8 +14,17 @@ line of its own; any failure exits non-zero:
              (n_pad not a multiple of 128, odd k, 3 join slots) over
              the edge-case batch of `kernels/stream_tick/parity.py`,
              both ``exact_smax`` values, out of place and in place;
-             ``stream_tick_fused_stacked`` at S = 3; ``delta_stats`` at
-             several k and all-masked; ``sparse_tick`` on the two-tick
+             ``stream_tick_fused_stacked`` at S = 3; ``delta_stats``
+             from the gated delta (and ungated) against
+             `delta_stats_gated_ref` in float64 (the kernel sums in
+             float64) at k = 1, 7, 128 (keys in registers), 129, 1000
+             and 8192 (in shared memory) and 9000 (above the limit: the
+             sorted-form route), all-masked, on each case kind of
+             `kernels/delta_stats/parity.py` (a hub on every lane,
+             repeated ids, ids outside [0, n) with joins and leaves),
+             and with leading batch axes (1024 streams; 2 × 37 at
+             k = 1000), each launched twice and bit-equal;
+             ``sparse_tick`` on the two-tick
              cases of `kernels/sparse_tick/parity.py` (an emptying then
              a reviving tick, allocating and freeing lanes, sentinel and
              out-of-range slots, all-masked rows) at the sparse serving
@@ -56,8 +65,11 @@ line of its own; any failure exits non-zero:
              ``stream_tick`` launched once per tick. One more tick,
              after the checks and outside the launch count, runs under
              ``torch.profiler`` for the device's busy and idle share.
-4. single  — `jsdist_stream(method="fused_tick")` on one stream for 20
-             deltas against the plain method; ``delta_stats`` launched.
+4. single  — `jsdist_incremental(method="fused_tick")` on one stream,
+             delta by delta as `jsdist_stream` loops, for 20 deltas
+             against `jsdist_stream(method="dense")`; ``delta_stats``
+             launched twice a delta; prints the median time a delta
+             (CUDA events around each call).
 5. sparse  — the sparse path: `FingerService.open(ServiceConfig(
              method="sparse_tick", placement="local", ingestion="sync",
              exact_smax=True, batch_size=4096, n_pad=2**20,
@@ -127,9 +139,11 @@ kernels line is the sum over those paths. Kernel times are CUDA-event means of t
 launch each path makes, at its shapes and inputs: ``stream_tick`` in
 place on a copy of a main-path tick's state restored before every call,
 ``sparse_tick`` in place (and out of place) on a copy of a sparse-path
-tick's state and slot-space delta, ``delta_stats`` on a single-stream
-update, ``stream_tick_fused_stacked`` out of place on phase 2's stacked
-case, ``vnge_q`` on the trained model's routing graph and the probe
+tick's state and slot-space delta, ``delta_stats`` as the whole
+`delta_stats_fused` call of phase 4's first update from its gated
+delta, ``stream_tick_fused_stacked`` out of place on phase 2's stacked
+case, ``vnge_q`` as the whole `vnge_q_stats` call on the trained
+model's routing graph and the probe
 kernels on its probe logits (each also at phase 2's largest shape),
 ``bsr_matvec`` on phase 7's G with, as ``library_ms``, cuSPARSE's BSR
 matvec through ``torch.sparse_bsr_tensor(...) @ x`` on the same matrix
@@ -138,7 +152,10 @@ Bounds come from the bytes each launch must move at the H100's 3.35 TB/s
 (the arithmetic bound is far below), counting only the state elements
 this run's delta changes, and the edge-store slots its gated lanes
 write, as written. The ``stream_tick`` fixed cost is also timed with
-every edge lane masked and with the first 32 lanes only. The line before
+every edge lane masked and with the first 32 lanes only; beside the
+``delta_stats`` and ``vnge_q`` rows (``empty_launch_ms``), one launch of
+an empty kernel through the same library's ctypes path, the floor of a
+one-launch op. The line before
 the last is the ``kernels`` JSON object; the last line is the device
 JSON object. Scores and state are compared at the tolerances stated in
 the parity modules (atol 1e-5, rtol 1e-5; the score as a divergence;
@@ -179,6 +196,7 @@ TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = \
     "granite-moe-3b-a800m", 8, 8, 1024
 TRAIN_STEPS, PROBE_EVERY, TRAIN_LR = 10, 2, 3e-3
 VNGE_NS = (40, 1000, 8192)
+B_STATS = 1024  # streams of phase 2's batched delta_stats case
 PROBE_SHAPES = ((192, 128), (48, 1000), (192, 1024))
 # the offline path: FINGER-Ĥ and Algorithm 1 on a 2^18-node planted
 # partition (256 contiguous communities, mean in-community degree 16,
@@ -516,9 +534,6 @@ def phase_kernels(args, torch, out, dev):
     from repro_torch.core.sparse import stack_sparse_states
     from repro_torch.kernels.parity import discover_parity_modules
     from repro_torch.engine.stream import stack_deltas, stack_states
-    from repro_torch.kernels.delta_stats import ops as ds_ops
-    from repro_torch.kernels.delta_stats import parity as ds_parity
-    from repro_torch.kernels.delta_stats.ref import delta_stats_sorted_ref
     from repro_torch.kernels.sparse_tick import ops as sp_ops
     from repro_torch.kernels.sparse_tick import parity as sp_parity
     from repro_torch.kernels.stream_tick import ops as st_ops
@@ -579,17 +594,7 @@ def phase_kernels(args, torch, out, dev):
     print(f"  stream_tick_fused_stacked S=3 B=2048: max_abs_err={err:.3e}")
     out["st_stacked"] = (states, deltas)
     del cases, got, want
-    for k, masked in ((1, False), (7, False), (128, False), (1000, False),
-                      (5000, False), (128, True)):
-        state, delta = ds_parity.make_case(N_PAD * 4, k, seed=k, device=dev,
-                                           all_masked=masked)
-        prep = ds_ops.prepare_sorted_delta(state.strengths, delta)
-        err = ds_parity.compare(ds_ops.delta_stats_sorted_cuda(*prep),
-                                delta_stats_sorted_ref(*prep),
-                                f"delta_stats k={k}")
-        errs["delta_stats"] = max(errs["delta_stats"], err)
-        print(f"  delta_stats k={k} all_masked={masked}: "
-              f"max_abs_err={err:.3e}")
+    phase_kernels_delta_stats(args, torch, errs, dev)
 
     def sparse(inplace, stacked=False):
         fn = sp_ops.sparse_tick_fused_stacked if stacked \
@@ -646,6 +651,51 @@ def phase_kernels(args, torch, out, dev):
     out["errs"] = errs
     phase_kernels_train(args, errs, dev)
     phase_kernels_bsr(args, torch, errs, dev)
+
+
+def phase_kernels_delta_stats(args, torch, errs, dev):
+    """Phase 2, ``delta_stats``: the one launch from the gated delta
+    against its plain version in float64 (`parity.plain`) at k in
+    registers (≤ 128), in shared memory (to the 8192 limit) and above
+    it (the sorted-form route), each case kind gated and not, with
+    leading batch axes, and a second launch bit-equal."""
+    from repro_torch.core.incremental import gate_delta_for_update
+    from repro_torch.kernels.delta_stats import ops as ds_ops
+    from repro_torch.kernels.delta_stats import parity as ds_parity
+
+    def check(label, strengths, delta):
+        got = ds_ops.delta_stats_cuda(strengths, delta)
+        err = ds_parity.compare(got, ds_parity.plain(strengths, delta),
+                                f"delta_stats {label}")
+        if not torch.equal(got, ds_ops.delta_stats_cuda(strengths, delta)):
+            raise AssertionError(f"delta_stats {label}: a second launch "
+                                 "gave other bits")
+        errs["delta_stats"] = max(errs["delta_stats"], err)
+        return err
+
+    for k, masked, kind in ((1, False, "mixed"), (7, False, "mixed"),
+                            (K_PAD, False, "mixed"), (K_PAD, True, "mixed"),
+                            (K_PAD, False, "hub"), (K_PAD, False, "repeat"),
+                            (K_PAD, False, "gating"), (K_PAD + 1, False,
+                                                       "hub"),
+                            (1000, False, "mixed"), (1000, False, "gating"),
+                            (ds_ops.max_fused_k(), False, "hub"),
+                            (ds_ops.max_fused_k() + 808, False, "mixed")):
+        state, delta = ds_parity.make_case(N_PAD * 4, k, seed=k, device=dev,
+                                           all_masked=masked, kind=kind)
+        gated, _ = gate_delta_for_update(state.node_mask, delta)
+        e1 = check(f"{kind} k={k}", state.strengths, gated)
+        e2 = check(f"{kind} k={k} ungated", state.strengths, delta)
+        route = "sorted form" if k > ds_ops.max_fused_k() else "one launch"
+        print(f"  delta_stats {kind} k={k} all_masked={masked} ({route}): "
+              f"max_abs_err={e1:.3e} gated, {e2:.3e} ungated; a second "
+              "launch bit-equal")
+    for lead, k in (((B_STATS,), K_PAD), ((2, 37), 1000)):
+        strengths, delta = ds_parity.stack_case(N_PAD, k, lead,
+                                                seed=args.seed, device=dev)
+        err = check(f"lead={lead} k={k}", strengths, delta)
+        print(f"  delta_stats leading axes {lead} k={k}: "
+              f"max_abs_err={err:.3e}")
 
 
 def check_bits(torch, label, got, *others) -> None:
@@ -863,10 +913,12 @@ def traced_tick(torch, svc, deltas):
 
 
 def phase_single(args, torch, out, dev):
-    """Phase 4: the single-stream path through the delta_stats kernel."""
+    """Phase 4: the single-stream path through the delta_stats kernel,
+    `jsdist_incremental` delta by delta (the loop of `jsdist_stream`),
+    each call timed with CUDA events."""
     import numpy as np
 
-    from repro_torch.core.jsdist import jsdist_stream
+    from repro_torch.core.jsdist import jsdist_incremental, jsdist_stream
     from repro_torch.core.state import finger_state
     from repro_torch.engine.stream import stack_deltas
 
@@ -875,11 +927,22 @@ def phase_single(args, torch, out, dev):
     state = finger_state(g)
     deltas = stack_deltas([fleet.tick().map_tensors(lambda x: x[0])
                            for _ in range(20)]).to(dev)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(20)]
+    torch.cuda.synchronize()
     zero_counts()
-    got, got_state = jsdist_stream(state, deltas, exact_smax=True,
-                                   method="fused_tick")
+    got_state, dists = state, []
+    for t, (e0, e1) in enumerate(events):
+        e0.record()
+        dist, got_state = jsdist_incremental(
+            got_state, deltas.map_tensors(lambda x: x[t]), exact_smax=True,
+            method="fused_tick")
+        e1.record()
+        dists.append(dist)
     torch.cuda.synchronize()
     launches = read_counts(out)["delta_stats"]
+    got = torch.stack(dists)
+    per_delta = sorted(e0.elapsed_time(e1) for e0, e1 in events)
     want, want_state = jsdist_stream(state, deltas, exact_smax=True,
                                      method="dense")
     div_err = float((got.double() ** 2 - want.double() ** 2).abs().max())
@@ -893,8 +956,13 @@ def phase_single(args, torch, out, dev):
     if launches != 40:
         raise AssertionError(f"delta_stats launched {launches} times for "
                              "20 deltas (2 updates each)")
+    median = (per_delta[9] + per_delta[10]) / 2
     print(f"  20 deltas, n_pad={N_PAD}, k_pad={K_PAD}: divergence max "
-          f"|diff| vs dense {div_err:.3e}; delta_stats launches {launches}")
+          f"|diff| vs dense {div_err:.3e}; delta_stats launches {launches}; "
+          f"jsdist_incremental(method=\"fused_tick\") median "
+          f"{median:.4f} ms a delta (min {per_delta[0]:.4f}, max "
+          f"{per_delta[-1]:.4f}; CUDA events)")
+    out["single_ms"] = median
     out["single"] = (state, deltas.map_tensors(lambda x: x[0]))
 
 
@@ -1158,7 +1226,7 @@ def kernel_rows(torch, out):
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.delta_stats import ops as ds_ops
     from repro_torch.kernels.delta_stats import parity as ds_parity
-    from repro_torch.kernels.delta_stats.ref import delta_stats_sorted_ref
+    from repro_torch.kernels.delta_stats.ref import delta_stats_gated_ref
     from repro_torch.kernels.stream_tick import ops as st_ops
     from repro_torch.kernels.stream_tick import parity as st_parity
     from repro_torch.kernels.stream_tick.ref import stream_tick_ref
@@ -1218,15 +1286,27 @@ def kernel_rows(torch, out):
         "bound_ms": bytes_tick / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": None}]
 
+    # the whole delta_stats_fused call the path makes, from the gated
+    # delta of the first update (one launch, nothing else on the card)
     state, delta = out["single"]
     delta, _ = gate_delta_for_update(state.node_mask, delta)
-    prep = ds_ops.prepare_sorted_delta(state.strengths, delta)
-    err = ds_parity.compare(ds_ops.delta_stats_sorted_cuda(*prep),
-                            delta_stats_sorted_ref(*prep), "main-path stats")
+    want = ds_parity.plain(state.strengths, delta)
+    err = ds_parity.compare(ds_ops.delta_stats_cuda(state.strengths, delta),
+                            want, "main-path stats")
     errs["delta_stats"] = max(errs["delta_stats"], err)
-    ms = cuda_ms(lambda: ds_ops.delta_stats_sorted_cuda(*prep), 200)
-    plain = cuda_ms(lambda: delta_stats_sorted_ref(*prep), 50)
-    bytes_stats = sum(t.numel() * t.element_size() for t in prep) + 16
+    ms = cuda_ms(lambda: ds_ops.delta_stats_fused(state, delta,
+                                                  pre_gated=True), 200)
+    plain = cuda_ms(lambda: delta_stats_gated_ref(state.strengths, delta),
+                    50)
+    empty = cuda_ms(lambda: dispatch.empty_launch(
+        "delta_stats", state.strengths.device), 200)
+    # read: the k lanes (ids, Δw, w_old, mask) and the strength of each
+    # touched node; written: the (4,) stats
+    k = delta.dw.shape[-1]
+    bytes_stats = 20 * k + 4 * int(want[3]) + 16
+    print(f"  delta_stats_fused from the gated delta, n_pad={N_PAD} "
+          f"k_pad={k}, |dV|={int(want[3])}: {ms:.4f} ms a call; one empty "
+          f"launch through the same ctypes path {empty:.4f} ms")
     rows.append({
         "name": "delta_stats", "route": "cuda",
         "source": "src/repro_torch/csrc/delta_stats.cu",
@@ -1234,7 +1314,8 @@ def kernel_rows(torch, out):
         "launches": out["launches"]["delta_stats"],
         "max_abs_err": errs["delta_stats"], "ms": ms, "plain_ms": plain,
         "bound_ms": bytes_stats / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes", "library_ms": None})
+        "bound_by": "bytes", "library_ms": None,
+        "empty_launch_ms": empty, "path_ms_a_delta": out.pop("single_ms")})
 
     # the (S, B) form, out of place on phase 2's stacked case; no path
     # calls it yet (the fleet's pooled tick is not ported), so its count
@@ -1441,6 +1522,7 @@ def phase_train(args, torch, out, dev):
 def train_rows(torch, out, dev):
     """The train path's kernels on its own inputs (the trained model's
     routing graph and probe logits) and at phase 2's largest shapes."""
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.entropy_probe import ops as ep_ops
     from repro_torch.kernels.entropy_probe import parity as ep_parity
     from repro_torch.kernels.entropy_probe import ref as ep_ref
@@ -1461,7 +1543,7 @@ def train_rows(torch, out, dev):
 
     def vnge_times(w):
         n = w.shape[0]
-        return (cuda_ms(lambda: vq_ops.vnge_q_stats_cuda(w), 200),
+        return (cuda_ms(lambda: vq_ops.vnge_q_stats(w), 200),
                 cuda_ms(lambda: vnge_q_stats_ref(w), 50),
                 (4 * n * n + 16) / HBM_BYTES_PER_S * 1e3)
 
@@ -1493,6 +1575,8 @@ def train_rows(torch, out, dev):
                            "src/repro/kernels/entropy_probe/kernel.py:35"),
              "graph_stats": ("src/repro_torch/csrc/entropy_probe.cu",
                              "src/repro/kernels/entropy_probe/kernel.py:42")}
+    empty = cuda_ms(lambda: dispatch.empty_launch("vnge_q", dev), 200)
+    print(f"  one empty launch through vnge_q's ctypes path: {empty:.4f} ms")
     rows = []
     for name, (path, big, shape, big_shape) in timed.items():
         print(f"  {name} at the path's shape {shape}: {path[0]:.4f} ms "
@@ -1508,6 +1592,8 @@ def train_rows(torch, out, dev):
             "shape": list(shape), "large": {
                 "shape": list(big_shape), "ms": big[0], "plain_ms": big[1],
                 "bound_ms": big[2]}})
+        if name == "vnge_q":
+            rows[-1]["empty_launch_ms"] = empty
         print_row(rows[-1])
     return rows
 
@@ -1850,8 +1936,10 @@ def offline_rows(torch, out, dev):
 
 def print_row(r: dict) -> None:
     """One kernel's row of the kernels line, for a reader."""
+    floor = f", one empty launch {r['empty_launch_ms']:.4f} ms" \
+        if "empty_launch_ms" in r else ""
     print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
-          f"ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']}), "
+          f"ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']}{floor}), "
           f"launches {r['launches']}, max_abs_err {r['max_abs_err']:.3e}")
 
 
@@ -1899,7 +1987,7 @@ def main() -> int:
         print("phase 3 main path (FingerService, fused_tick):")
         phase_serve(args, torch, out, dev)
         phase = "single"
-        print("phase 4 single-stream path (jsdist_stream, fused_tick):")
+        print("phase 4 single-stream path (jsdist_incremental, fused_tick):")
         phase_single(args, torch, out, dev)
         phase = "timing"
         print("kernel times at the main path's shapes and inputs:")

@@ -15,6 +15,18 @@ REPRO_EXPORT const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+namespace {
+__global__ void repro_empty_kernel() {}
+}  // namespace
+
+// One launch of an empty kernel on `stream`, through the same ctypes
+// path as a library's kernels: the floor of a one-launch op. Returns the
+// launch's cudaError_t.
+REPRO_EXPORT int repro_empty_launch(void* stream) {
+  repro_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;

@@ -36,12 +36,12 @@
 //     node slots broadcast by shuffles), the edge's validity and Δw, its
 //     part of the edge sums, and two sort keys (node id << 32 | endpoint
 //     index), the largest key for an invalid endpoint.
-//   - The keys are sorted by a bitonic network. Up to 256 keys (k ≤ 128,
-//     the serving size) they stay in registers, up to 8 a lane: compare-
-//     exchanges inside a lane and `__shfl_xor_sync` across lanes. Above
-//     that the warp sorts its slice of shared memory. Either way the
-//     order is (node id, endpoint index) and the sorted keys land in the
-//     slice.
+//   - The keys are sorted by the warp's bitonic network (warp_sort.cuh,
+//     shared with delta_stats.cu). Up to 256 keys (k ≤ 128, the serving
+//     size) they stay in registers, up to 8 a lane: compare-exchanges
+//     inside a lane and `__shfl_xor_sync` across lanes. Above that the
+//     warp sorts its slice of shared memory. Either way the order is
+//     (node id, endpoint index) and the sorted keys land in the slice.
 //   - A segment head (the first key of its id) sums its segment's Δw in
 //     endpoint order, by one lane, and keeps the sum in its key's low
 //     word; the node sums of both updates follow from it.
@@ -101,16 +101,13 @@
 // overlap.
 #pragma once
 
-#include "common.cuh"
+#include "warp_sort.cuh"
 
 namespace {
 
 constexpr int kMaxStreams = 8;                 // warps (streams) a block
 constexpr int kThreads = 32 * kMaxStreams;
-constexpr int kRegKeys = 256;                  // keys sorted in registers
 constexpr long long kBlockSmemTarget = 96 * 1024;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned long long kNoKey = ~0ull;   // an invalid endpoint
 constexpr int kRowSteps = 4;                   // row steps of loads in flight
 
 // eq. (2) from the carried scalars, H̃ = 0 on an empty graph.
@@ -148,8 +145,7 @@ struct TickLayout {
   long long stream_bytes;
   int streams;
 
-  __host__ __device__ explicit TickLayout(int k) : sort_n(64) {
-    while (sort_n < 2 * k) sort_n <<= 1;  // bitonic length, ≥ 2 a lane
+  __host__ __device__ explicit TickLayout(int k) : sort_n(sort_length(k)) {
     words = (k + 31) / 32;
     stream_bytes = (8ll * sort_n + 4ll * k + 4ll * words + 4ll * 32 + 15) &
                    ~15ll;
@@ -163,7 +159,7 @@ struct TickLayout {
   }
   // Keys a lane holds in registers, or 0 for the shared-memory sort.
   __host__ __device__ int keys_per_lane() const {
-    return sort_n <= kRegKeys ? sort_n / 32 : 0;
+    return lane_keys(sort_n);
   }
 };
 
@@ -175,72 +171,6 @@ struct EdgeStore {
   float* out;
   int m;
 };
-
-__device__ __forceinline__ unsigned long long umin64(unsigned long long a,
-                                                     unsigned long long b) {
-  return a < b ? a : b;
-}
-
-__device__ __forceinline__ unsigned long long umax64(unsigned long long a,
-                                                     unsigned long long b) {
-  return a < b ? b : a;
-}
-
-// Bitonic sort of 32·KPL keys held KPL a lane, lane L holding positions
-// L·KPL .. L·KPL + KPL − 1: strides below KPL compare inside a lane,
-// the others across lanes with one 64-bit shuffle a key.
-template <int KPL>
-__device__ __forceinline__ void warp_sort(unsigned long long (&key)[KPL],
-                                          int lane) {
-  constexpr int N = 32 * KPL;
-#pragma unroll
-  for (int size = 2; size <= N; size <<= 1) {
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      if (stride >= KPL) {
-        const int lx = stride / KPL;
-        const bool asc = ((lane * KPL) & size) == 0;
-        const bool keep_min = asc == ((lane & lx) == 0);
-#pragma unroll
-        for (int r = 0; r < KPL; ++r) {
-          const unsigned long long o = __shfl_xor_sync(kFull, key[r], lx);
-          key[r] = keep_min ? umin64(key[r], o) : umax64(key[r], o);
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < KPL; ++r) {
-          if (r & stride) continue;
-          const bool asc = ((lane * KPL + r) & size) == 0;
-          const unsigned long long a = key[r], b = key[r | stride];
-          if ((a > b) == asc) {
-            key[r] = b;
-            key[r | stride] = a;
-          }
-        }
-      }
-    }
-  }
-}
-
-// Bitonic sort of the warp's n keys in shared memory (n a power of two),
-// one `__syncwarp` a stage.
-__device__ __forceinline__ void warp_sort_shared(unsigned long long* key,
-                                                 int n, int lane) {
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = lane; t < (n >> 1); t += 32) {
-        const int lo = 2 * stride * (t / stride) + t % stride;
-        const int hi = lo + stride;
-        const unsigned long long a = key[lo], b = key[hi];
-        if ((a > b) == ((lo & size) == 0)) {
-          key[lo] = b;
-          key[hi] = a;
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
 
 // The join and leave bits of the 32 node ids [c, c + 32): bit i is set
 // when a node slot with id c + i has a positive (join) or negative

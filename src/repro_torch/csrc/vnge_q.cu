@@ -1,4 +1,4 @@
-// Fused Lemma-1 statistics of a dense W in one pass over device memory.
+// Fused Lemma-1 statistics of a dense W in one launch.
 //
 // Replaces the TPU kernel `vnge_q_stats_pallas`
 // (src/repro/kernels/vnge_q/kernel.py:56, body `_kernel` :28). For an
@@ -8,39 +8,66 @@
 //
 // Design. On the TPU every grid step accumulates into one shared (4,)
 // output block, sound only because the TPU grid runs in order. Blocks
-// on Hopper run in no order, so this is two launches:
+// on Hopper run in no order, so each block reduces a stripe of rows to a
+// (4,) partial, and the last block to finish reduces the partials, in
+// one launch:
 //
-//   1. one block per stripe of kRowsPerBlock rows; each warp reads a
-//      row with neighbouring lanes on neighbouring columns (four loads
-//      in flight a lane), reduces its sum and sum of squares with
-//      shuffles, and keeps the stripe's [S, Σs², Σw², s_max] in
-//      registers; the block reduces them in a fixed order and writes
-//      one (4,) partial;
-//   2. one block reduces the partials in a fixed order.
+//   - each warp reads one row with neighbouring lanes on neighbouring
+//     columns, four loads in flight a lane, and reduces its sum and sum
+//     of squares with shuffles; the block reduces its warps' [S, Σs²,
+//     Σw², s_max] in a fixed order;
+//   - n ≤ kOneBlockN (the training probe's 40 × 40 routing graph): one
+//     block of 32 warps takes every row (at most 4 a warp) and writes
+//     the result, no partials;
+//   - above, one block of 8 warps a stripe of 8 rows, one row a warp,
+//     writes its partial, `__threadfence`s and counts itself done with
+//     one `atomicAdd` on a device counter; the block that counts last
+//     reduces the partials in index order (thread t sums partials t,
+//     t + 256, ..., then the fixed block tree) and resets the counter to
+//     0 for the next launch on the stream. No atomic touches a value, so
+//     the result repeats bit for bit whichever block finishes last.
 //
-// No atomics, so the result repeats bit for bit. The ragged edge is
-// masked by the loop bounds: W is not padded to a block multiple.
+// One row a warp matters: with two rows a warp (16 a block), as the
+// two-launch form it replaces had, the blocks' wait on the counter made
+// the 8192² call slower than that form on the H100; with one row a warp
+// it is faster.
+//
+// The ragged edge is masked by the loop bounds: W is not padded. The
+// wrapper keeps the partials and the counter as a workspace of its own
+// stream, so two streams never share a counter.
 //
 // What bounds it on the H100: n² · 4 bytes read once, at 3.35 TB/s
 // (8192² → 0.080 ms); about 3 flops a byte, far below the card's
-// balance point. At the training probe's n = 40 (6.4 KB) a launch is
-// latency-bound: a few µs for two launches.
+// balance point. At n = 40 (6.4 KB) a launch is latency-bound.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerBlock = 16;
+constexpr int kThreads = 256;          // a block of the stripe grid
+constexpr int kRowsPerBlock = kThreads / 32;  // one row a warp
+constexpr int kOneBlockN = 128;        // at or below: one block, no partials
+constexpr int kOneBlockThreads = 1024; // that block: 32 warps, ≤ 4 rows each
 
-__global__ void __launch_bounds__(kThreads)
-vnge_q_partial_kernel(const float* __restrict__ w,
-                      float* __restrict__ partial, int n) {
+int grid_blocks(int n) {
+  return n <= kOneBlockN ? 1 : (n + kRowsPerBlock - 1) / kRowsPerBlock;
+}
+
+// kOneBlock: one block of kOneBlockThreads takes all n rows and writes
+// the result. Otherwise a block of kThreads takes kRowsPerBlock rows.
+template <bool kOneBlock>
+__global__ void __launch_bounds__(kOneBlock ? kOneBlockThreads : kThreads)
+vnge_q_kernel(const float* __restrict__ w, float* __restrict__ partial,
+              unsigned* __restrict__ counter, float* __restrict__ out,
+              int n) {
+  constexpr int kWarps = (kOneBlock ? kOneBlockThreads : kThreads) / 32;
   __shared__ float scratch[32];
+  __shared__ bool last;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRowsPerBlock;
+  const int rows = kOneBlock ? n : kRowsPerBlock;
+  const long long row0 =
+      kOneBlock ? 0 : static_cast<long long>(blockIdx.x) * kRowsPerBlock;
   float s_tot = 0.f, s2 = 0.f, w2 = 0.f, s_max = -INFINITY;
-  for (int r = warp; r < kRowsPerBlock && row0 + r < n; r += kWarps) {
+  for (int r = warp; r < rows && row0 + r < n; r += kWarps) {
     const float* wr = w + (row0 + r) * static_cast<long long>(n);
     float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
     float q0 = 0.f, q1 = 0.f, q2 = 0.f, q3 = 0.f;
@@ -69,25 +96,34 @@ vnge_q_partial_kernel(const float* __restrict__ w,
   s2 = block_sum(lead ? s2 : 0.f, scratch);
   w2 = block_sum(lead ? w2 : 0.f, scratch);
   s_max = block_max(s_max, scratch);
-  if (threadIdx.x == 0) {
-    float* out = partial + 4LL * blockIdx.x;
-    out[0] = s_tot;
-    out[1] = s2;
-    out[2] = w2;
-    out[3] = s_max;
+  if constexpr (kOneBlock) {
+    if (threadIdx.x == 0) {
+      out[0] = s_tot;
+      out[1] = s2;
+      out[2] = 0.5f * w2;
+      out[3] = s_max;
+    }
+    return;
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-vnge_q_reduce_kernel(const float* __restrict__ partial, int blocks,
-                     float* __restrict__ out) {
-  __shared__ float scratch[32];
-  float s_tot = 0.f, s2 = 0.f, w2 = 0.f, s_max = -INFINITY;
-  for (int b = threadIdx.x; b < blocks; b += blockDim.x) {
-    s_tot += partial[4 * b + 0];
-    s2 += partial[4 * b + 1];
-    w2 += partial[4 * b + 2];
-    s_max = fmaxf(s_max, partial[4 * b + 3]);
+  if (threadIdx.x == 0) {
+    float* p = partial + 4LL * blockIdx.x;
+    p[0] = s_tot;
+    p[1] = s2;
+    p[2] = w2;
+    p[3] = s_max;
+    __threadfence();  // the partial is visible before the count
+    last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // every other block's partial is read after its count
+  s_tot = 0.f, s2 = 0.f, w2 = 0.f, s_max = -INFINITY;
+  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x);
+       b += blockDim.x) {
+    s_tot += __ldcg(partial + 4 * b + 0);
+    s2 += __ldcg(partial + 4 * b + 1);
+    w2 += __ldcg(partial + 4 * b + 2);
+    s_max = fmaxf(s_max, __ldcg(partial + 4 * b + 3));
   }
   s_tot = block_sum(s_tot, scratch);
   s2 = block_sum(s2, scratch);
@@ -98,26 +134,29 @@ vnge_q_reduce_kernel(const float* __restrict__ partial, int blocks,
     out[1] = s2;
     out[2] = 0.5f * w2;
     out[3] = s_max;
+    *counter = 0u;  // ready for the next launch on this stream
   }
 }
 
-int partial_blocks(int n) { return (n + kRowsPerBlock - 1) / kRowsPerBlock; }
-
 }  // namespace
 
-// Rows of the (blocks, 4) partial buffer the wrapper allocates.
-REPRO_EXPORT int vnge_q_partial_blocks(int n) { return partial_blocks(n); }
+// Partials (rows of 4 floats) a launch for n needs in its workspace; 1
+// where one block takes all of W (it writes none).
+REPRO_EXPORT int vnge_q_blocks(int n) { return grid_blocks(n); }
 
-// Both passes on `stream`; returns the first launch error (0 on success).
+// One launch on `stream`: `partial` holds vnge_q_blocks(n) rows of 4
+// floats and `counter` one unsigned that is 0 before the launch (the
+// launch leaves it 0). Returns the launch's cudaError_t (0 on success).
 REPRO_EXPORT int vnge_q_stats_launch(const float* w, float* partial,
-                                     float* out, int n, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = n > 0 ? partial_blocks(n) : 0;
-  if (blocks > 0) {
-    vnge_q_partial_kernel<<<blocks, kThreads, 0, s>>>(w, partial, n);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  vnge_q_reduce_kernel<<<1, kThreads, 0, s>>>(partial, blocks, out);
+                                     unsigned* counter, float* out, int n,
+                                     void* stream) {
+  const int blocks = grid_blocks(n);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocks == 1)
+    vnge_q_kernel<true><<<1, kOneBlockThreads, 0, s>>>(w, partial, counter,
+                                                       out, n);
+  else
+    vnge_q_kernel<false><<<blocks, kThreads, 0, s>>>(w, partial, counter,
+                                                     out, n);
   return static_cast<int>(cudaGetLastError());
 }

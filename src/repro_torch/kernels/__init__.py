@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, one package each.
 
-- ``delta_stats``   : fused Theorem-2 ΔS/ΔQ/Δs_max over sorted endpoints
-  (replaces `repro.kernels.delta_stats`);
+- ``delta_stats``   : fused Theorem-2 ΔS/ΔQ/Δs_max of one update from the
+  gated delta, the endpoint sort in the kernel (replaces
+  `repro.kernels.delta_stats`);
 - ``stream_tick``   : the whole batched serving tick in one launch
   (replaces `repro.kernels.stream_tick`);
 - ``sparse_tick``   : the same tick over the slot axis plus the edge-store

@@ -32,6 +32,7 @@ kernels round like the unfused elementwise ops of the plain versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -158,6 +159,26 @@ def build_seconds() -> float:
     return _LIBRARY.build_seconds
 
 
+@functools.lru_cache(maxsize=None)
+def bind(name: str, symbol: str, argtypes: tuple,
+         restype=ctypes.c_int):
+    """``symbol`` of the kernel library ``name`` with its ctypes
+    signature set once per process (the libraries load once), so a
+    wrapper does not set it on every call."""
+    fn = getattr(library()[name], symbol)
+    fn.argtypes, fn.restype = list(argtypes), restype
+    return fn
+
+
+def empty_launch(name: str, device: torch.device) -> None:
+    """Launch an empty kernel through library ``name``'s ctypes path on
+    the current stream: the floor of a one-launch op. It counts in no
+    wrapper's ``LAUNCHES``."""
+    err = bind(name, "repro_empty_launch", (ctypes.c_void_p,))(
+        stream_handle(device))
+    check_launch(name, err)
+
+
 def check_launch(name: str, err: int) -> None:
     """Raise with CUDA's own text when a launch returned an error code."""
     if err != 0:
@@ -171,8 +192,15 @@ def check_launch(name: str, err: int) -> None:
 
 
 def stream_handle(device: torch.device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as a Python int."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current CUDA stream on ``device``, as a Python int.
+
+    Read raw, as PyTorch's own generated code reads it: building the
+    `torch.cuda.Stream` object that `torch.cuda.current_stream` returns
+    costs about as much host time as a kernel launch.
+    """
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def smem_bytes(name: str, k: int, j: int) -> int:

@@ -2,22 +2,28 @@
 
 `vnge_q_stats` reduces an (n, n) W to ``[S, Σs², Σ_E w², s_max]``:
 
-- a float32 W on a CUDA device goes to the hand-written kernel
-  (`csrc/vnge_q.cu`, which replaces the TPU kernel
+- a float32 W on a CUDA device goes to one launch of the hand-written
+  kernel (`csrc/vnge_q.cu`, which replaces the TPU kernel
   `vnge_q_stats_pallas`); a launch CUDA refuses raises;
 - a W on the CPU goes to the plain version (`ref.vnge_q_stats_ref`).
 
 ``node_mask`` zeroes inactive rows and columns before the call, as the
 reference's `ops.py` does. The kernel masks the ragged edge itself, so
-W is not padded to a block multiple. `quadratic_q_dense` and
-`vnge_tilde_dense` close Lemma 1 and eq. (2) on the statistics.
+W is not padded to a block multiple. Above n = 128 its blocks write
+partials that the last block to finish reduces in index order; the
+partials and the device counter that finds that block are a workspace
+cached by device and by CUDA stream (`_workspace`), zeroed once, so a
+call allocates only its output and two streams never share a counter.
+`quadratic_q_dense` and `vnge_tilde_dense` close Lemma 1 and eq. (2) on
+the statistics.
 
 ``LAUNCHES`` counts kernel launches (never plain-version calls).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -28,6 +34,32 @@ from repro_torch.kernels.vnge_q.ref import vnge_q_stats_ref
 LAUNCHES = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# (device index, stream handle) → (partials, counter)
+_WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks(n: int) -> int:
+    """Partial rows a launch for n writes (the library's own count)."""
+    return int(dispatch.bind("vnge_q", "vnge_q_blocks", (_I,))(n))
+
+
+def _workspace(device: torch.device, stream: int, blocks: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stream's partials (at least ``blocks`` rows) and its counter;
+    the counter is zeroed when it is made, and every launch leaves it
+    0."""
+    key = (device.index, stream)
+    got = _WORKSPACE.get(key)
+    if got is None:
+        got = (torch.empty((blocks, 4), dtype=torch.float32, device=device),
+               torch.zeros((1,), dtype=torch.int32, device=device))
+        _WORKSPACE[key] = got
+    elif got[0].shape[0] < blocks:
+        got = (torch.empty((blocks, 4), dtype=torch.float32, device=device),
+               got[1])
+        _WORKSPACE[key] = got
+    return got
 
 
 def vnge_q_stats_cuda(w: torch.Tensor) -> torch.Tensor:
@@ -40,18 +72,13 @@ def vnge_q_stats_cuda(w: torch.Tensor) -> torch.Tensor:
     n = w.shape[0]
     dispatch.check_operands("vnge_q", w.device,
                             [("W", w, (n, n), torch.float32)])
-    lib = dispatch.library()["vnge_q"]
-    lib.vnge_q_partial_blocks.argtypes = [_I]
-    lib.vnge_q_partial_blocks.restype = _I
-    blocks = lib.vnge_q_partial_blocks(n)
-    partial = torch.empty((max(blocks, 1), 4), dtype=torch.float32,
-                          device=w.device)
+    stream = dispatch.stream_handle(w.device)
+    partial, counter = _workspace(w.device, stream, _blocks(n))
     out = torch.empty((4,), dtype=torch.float32, device=w.device)
-    fn = lib.vnge_q_stats_launch
-    fn.argtypes = [_P, _P, _P, _I, _P]
-    fn.restype = _I
-    err = fn(w.data_ptr(), partial.data_ptr(), out.data_ptr(), n,
-             dispatch.stream_handle(w.device))
+    fn = dispatch.bind("vnge_q", "vnge_q_stats_launch",
+                       (_P, _P, _P, _P, _I, _P))
+    err = fn(w.data_ptr(), partial.data_ptr(), counter.data_ptr(),
+             out.data_ptr(), n, stream)
     dispatch.check_launch("vnge_q", err)
     LAUNCHES += 1
     return out

@@ -9,7 +9,9 @@ Run them on the card with
 
 Tolerances are those of the parity modules (`kernels/*/parity.py`):
 atol 1e-5 with rtol 1e-5 on state and statistics, exact masks, and the
-score compared as a divergence (see `stream_tick.parity`); ``vnge_q``
+score compared as a divergence (see `stream_tick.parity`);
+``delta_stats`` against its plain version evaluated in float64, as the
+kernel sums (`delta_stats.parity.plain`); ``vnge_q``
 at rtol 3e-5 and ``entropy_probe`` at rtol 5e-4 (atol 1e-5), the
 reference's own kernel-test tolerances; ``bsr_spmv`` at atol 1e-5 with
 rtol 1e-5, and λ_max of its power iteration at rtol 1e-5 against the
@@ -23,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.incremental import gate_delta_for_update
 from repro_torch.core.jsdist import jsdist_stream
 from repro_torch.core.sparse import stack_sparse_states
 from repro_torch.engine.stream import stack_deltas, stack_states
@@ -32,7 +35,6 @@ from repro_torch.kernels.bsr_spmv import parity as bs_parity
 from repro_torch.kernels.bsr_spmv.ref import bsr_matvec_ref
 from repro_torch.kernels.delta_stats import ops as ds_ops
 from repro_torch.kernels.delta_stats import parity as ds_parity
-from repro_torch.kernels.delta_stats.ref import delta_stats_sorted_ref
 from repro_torch.kernels.entropy_probe import ops as ep_ops
 from repro_torch.kernels.entropy_probe import parity as ep_parity
 from repro_torch.kernels.entropy_probe import ref as ep_ref
@@ -155,22 +157,88 @@ def test_stream_tick_refuses_too_much_shared_memory(cuda):
         st_ops.stream_tick_fused(states, deltas)
 
 
-@pytest.mark.parametrize("k", [1, 7, 128, 1000, 5000])
-def test_delta_stats_matches_plain(cuda, k):
-    state, delta = ds_parity.make_case(4096, k, seed=k, device=cuda)
-    prep = ds_ops.prepare_sorted_delta(state.strengths, delta)
+def _gated(state, delta):
+    return gate_delta_for_update(state.node_mask, delta)[0]
+
+
+@pytest.mark.parametrize("k", [1, 7, 37, 128, 129, 200, 1000, 1024, 5000,
+                               8192, 9000])
+def test_delta_stats_matches_plain(cuda, k, monkeypatch):
+    """One launch from the gated delta: keys in registers up to k = 128,
+    in the warp's shared memory above, up to k = 8192 (160 KB a block);
+    k = 9000 takes the sorted-form route (torch's argsort, then the
+    sorted-form kernel). Below the limit the sorted form is never
+    built."""
+    state, delta = ds_parity.make_case(4 * k + 64, k, seed=k, device=cuda)
+    delta = _gated(state, delta)
+    above = k > ds_ops.max_fused_k()
+    assert ds_ops.max_fused_k() == 8192
+    if not above:
+        monkeypatch.setattr(ds_ops, "prepare_sorted_delta", None)
     before = ds_ops.LAUNCHES
-    got = ds_ops.delta_stats_sorted_cuda(*prep)
+    got = ds_ops.delta_stats_cuda(state.strengths, delta)
     assert ds_ops.LAUNCHES == before + 1
-    ds_parity.compare(got, delta_stats_sorted_ref(*prep))
+    ds_parity.compare(got, ds_parity.plain(state.strengths, delta),
+                      f"delta_stats k={k}")
+    again = ds_ops.delta_stats_cuda(state.strengths, delta)
+    torch.testing.assert_close(got, again, atol=0, rtol=0)
 
 
-def test_delta_stats_all_masked_gives_minus_inf(cuda):
-    state, delta = ds_parity.make_case(256, 64, seed=1, device=cuda,
+@pytest.mark.parametrize("k", [64, 9000])
+def test_delta_stats_all_masked_gives_minus_inf(cuda, k):
+    state, delta = ds_parity.make_case(256, k, seed=1, device=cuda,
                                        all_masked=True)
-    prep = ds_ops.prepare_sorted_delta(state.strengths, delta)
-    got = ds_ops.delta_stats_sorted_cuda(*prep).cpu().numpy()
+    got = ds_ops.delta_stats_cuda(state.strengths,
+                                  _gated(state, delta)).cpu().numpy()
     assert got[2] == -np.inf and got[3] == 0.0 and got[0] == 0.0
+
+
+@pytest.mark.parametrize("kind", ds_parity.KINDS)
+@pytest.mark.parametrize("k", [37, 128, 200, 1024])
+def test_delta_stats_cases_gated_and_not(cuda, kind, k):
+    """Each case kind, gated as update_state gates it and ungated (ids
+    outside [0, n) then reach the kernel): the kernel against the plain
+    version, two launches bit-equal."""
+    state, delta = ds_parity.make_case(300, k, seed=k, device=cuda,
+                                       kind=kind)
+    for d in (_gated(state, delta), delta):
+        got = ds_ops.delta_stats_cuda(state.strengths, d)
+        ds_parity.compare(got, ds_parity.plain(state.strengths, d),
+                          f"delta_stats {kind} k={k}")
+        torch.testing.assert_close(
+            got, ds_ops.delta_stats_cuda(state.strengths, d), atol=0,
+            rtol=0)
+
+
+@pytest.mark.parametrize("k", [40, 128, 1024, 9000])
+@pytest.mark.parametrize("lead", [(3,), (2, 3), (37,)])
+def test_delta_stats_leading_batch_axes(cuda, lead, k):
+    """One warp a stream over the leading axes (37 streams: five blocks,
+    the last one partly empty), the first stream all-masked; one launch
+    a call on either route."""
+    strengths, delta = ds_parity.stack_case(200, k, lead, seed=3,
+                                            device=cuda)
+    before = ds_ops.LAUNCHES
+    got = ds_ops.delta_stats_cuda(strengths, delta)
+    assert ds_ops.LAUNCHES == before + 1
+    assert got.shape == (*lead, 4)
+    ds_parity.compare(got, ds_parity.plain(strengths, delta),
+                      f"delta_stats lead={lead} k={k}")
+    assert got.reshape(-1, 4)[0, 2].item() == -np.inf
+
+
+def test_delta_stats_refuses_by_name(cuda):
+    state, delta = ds_parity.make_case(300, 16, seed=0, device=cuda)
+    with pytest.raises(TypeError, match="senders"):
+        ds_ops.delta_stats_cuda(state.strengths, dataclasses.replace(
+            delta, senders=delta.senders.long()))
+    with pytest.raises(TypeError, match="strengths"):
+        ds_ops.delta_stats_cuda(state.strengths.double(), delta)
+    with pytest.raises(ValueError, match="senders"):
+        ds_ops.delta_stats_cuda(state.strengths[None], delta)
+    with pytest.raises(ValueError, match="not contiguous"):
+        ds_ops.delta_stats_cuda(state.strengths, dataclasses.replace(
+            delta, dw=torch.stack([delta.dw, delta.dw], -1)[:, 0]))
 
 
 def test_single_stream_fused_tick_runs_the_kernel(cuda):
@@ -300,6 +368,96 @@ def test_vnge_q_repeats_bit_for_bit_and_is_zero_when_empty(cuda):
     torch.testing.assert_close(a, b, atol=0, rtol=0)
     zero = vq_ops.vnge_q_stats(torch.zeros((77, 77), device=cuda))
     assert zero.abs().max().item() == 0.0
+
+
+def test_vnge_q_workspace_is_reused_and_bits_repeat(cuda):
+    """Grid sizes up and down on one stream's cached workspace (the
+    counter is reset by each launch): every result bit-equal to the
+    first call at its n, and one launch a call."""
+    ws = {n: vq_parity.make_case(n, seed=n, device=cuda)[0]
+          for n in (129, 3000, 40, 8192)}
+    first = {n: vq_ops.vnge_q_stats(w) for n, w in ws.items()}
+    before = vq_ops.LAUNCHES
+    for n in (3000, 40, 8192, 129, 3000, 8192):
+        got = vq_ops.vnge_q_stats(ws[n])
+        torch.testing.assert_close(got, first[n], atol=0, rtol=0)
+        vq_parity.compare(got, vnge_q_stats_ref(ws[n]), f"vnge_q n={n}")
+    assert vq_ops.LAUNCHES == before + 6
+    stream = torch.cuda.current_stream().cuda_stream
+    partial, counter = vq_ops._WORKSPACE[(cuda.index or 0, stream)]
+    assert partial.shape[0] >= vq_ops._blocks(8192) > vq_ops._blocks(3000)
+    assert counter.item() == 0
+
+
+def test_vnge_q_on_two_streams(cuda):
+    """Two side streams at once, each with its own workspace: the same
+    bits as the default stream's call."""
+    w, _ = vq_parity.make_case(4099, seed=5, device=cuda)
+    want = vq_ops.vnge_q_stats(w)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            outs.append([vq_ops.vnge_q_stats(w) for _ in range(20)])
+    torch.cuda.synchronize()
+    for got in (o for batch in outs for o in batch):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    keys = {(cuda.index or 0, s.cuda_stream) for s in streams}
+    assert keys <= set(vq_ops._WORKSPACE)
+
+
+PROFILE_SCRIPT = """
+import json, sys, torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.core.incremental import gate_delta_for_update
+from repro_torch.kernels.delta_stats import ops as ds_ops
+from repro_torch.kernels.delta_stats import parity as ds_parity
+from repro_torch.kernels.vnge_q import ops as vq_ops
+from repro_torch.kernels.vnge_q import parity as vq_parity
+dev = torch.device("cuda")
+state, delta = ds_parity.make_case(1024, 128, seed=1, device=dev)
+delta = gate_delta_for_update(state.node_mask, delta)[0]
+ws = [vq_parity.make_case(n, seed=n, device=dev)[0] for n in (40, 8192)]
+ds_ops.delta_stats_fused(state, delta, pre_gated=True)
+for w in ws:
+    vq_ops.vnge_q_stats(w)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    for _ in range(10):
+        ds_ops.delta_stats_fused(state, delta, pre_gated=True)
+        for w in ws:
+            vq_ops.vnge_q_stats(w)
+    torch.cuda.synchronize()
+p.export_chrome_trace(sys.argv[1])
+events = json.load(open(sys.argv[1]))["traceEvents"]
+names = [e["name"] for e in events if e.get("ph") == "X"
+         and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+print(json.dumps(names))
+"""
+
+
+def test_one_device_kernel_a_call(cuda, tmp_path):
+    """torch.profiler, in a process of its own (a second session in one
+    process records no device events): 10 calls of `delta_stats_fused`
+    from the gated delta and 20 of `vnge_q_stats` (n = 40 and 8192) run
+    exactly 30 device operations, all kernels: 10 of delta_stats and 20
+    of vnge_q."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(dispatch.REPO_ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, "-c", PROFILE_SCRIPT, str(tmp_path / "trace.json")],
+        capture_output=True, text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    names = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(names) == 30, names
+    assert sum("delta_stats" in n for n in names) == 10, names
+    assert sum("vnge_q" in n for n in names) == 20, names
 
 
 @pytest.mark.parametrize("causal", [True, False])

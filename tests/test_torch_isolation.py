@@ -215,6 +215,8 @@ def test_kernel_entry_points_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ds_ops.delta_stats_sorted_cuda(*ds_ops.prepare_sorted_delta(
             state.strengths, delta))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ds_ops.delta_stats_cuda(state.strengths, delta)
     states, d1, _ = sp_parity.make_case(8, 40, 100, 8, 2, seed=0,
                                         device="cpu")
     for name in sp_ops.LAUNCHES:

@@ -58,7 +58,7 @@ def granite():
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("n", [40, 130, 256])
+@pytest.mark.parametrize("n", [37, 40, 130, 256, 1000])
 def test_vnge_q_plain_matches_oracle_and_interpret_kernel(n, masked):
     w, mask = vq_parity.make_case(n, seed=n, device="cpu", masked=masked)
     jw = jnp.asarray(w.numpy())

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the tick and BSR kernels of this checkout against those of
-another one, on one NVIDIA GPU, on the same inputs.
+"""Time the kernels of this checkout against those of another one, on
+one NVIDIA GPU, on the same inputs.
 
     python3 tools/kernel_ab.py --baseline DIR [--change DIR] [--seed S]
 
@@ -24,7 +24,23 @@ interface of this checkout. Inputs, from ``--seed``:
   (4096 streams, n_slots 1024, m_pad 8192);
 - ``bsr_matvec`` on the offline phase's three 2¹⁸-node graphs
   (`chip_smoke.offline_edges`), where the change's y must equal the
-  baseline's bit for bit.
+  baseline's bit for bit;
+- ``delta_stats`` at phase 4's shapes (one stream, n_pad 1024, k_pad
+  128): the whole call from the gated delta, the baseline's as its
+  sorted-form wrapper made it (`prepare_sorted_delta`, then one launch
+  of its ``delta_stats_sorted_launch``, signatures set per call) against
+  this checkout's `delta_stats_fused`; each launch alone; and the median
+  per-delta time of `jsdist_incremental(method="fused_tick")` over phase
+  4's 20 deltas with either one in `update_state`;
+- ``vnge_q`` at n = 40 (the training probe's routing graph), 1000 and
+  8192: the whole call, the baseline's two-launch wrapper (partials and
+  output allocated, signatures set, per call) against this checkout's
+  `vnge_q_stats`, both against the plain version.
+
+The change side of ``delta_stats`` and ``vnge_q`` is this checkout's
+wrappers and library (``--change`` moves the other kernels only); each
+also times one empty launch through this checkout's ctypes path, the
+floor of a one-launch op.
 
 The change's outputs are held against the plain versions (the parity
 modules' tolerances), and the two sets against each other. Prints the
@@ -317,6 +333,181 @@ def ab_bsr(libs, base, args, res):
         del m, x, a, c
 
 
+def parent_delta_stats_fused(lib):
+    """`delta_stats_fused` as the sorted-form wrapper made it on a CUDA
+    tensor: the sorted form in torch, then one launch of ``lib``'s
+    ``delta_stats_sorted_launch``."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.delta_stats import ops as ds_ops
+
+    def fused(state, delta, pre_gated=False):
+        assert pre_gated
+        prep = ds_ops.prepare_sorted_delta(state.strengths, delta)
+        lead = prep[0].shape[:-1]
+        dev = prep[0].device
+        for t in prep:
+            if t.device != dev or t.shape[:-1] != lead:
+                raise ValueError("delta_stats: inputs disagree")
+        args = [t.contiguous() for t in prep]
+        out = torch.empty((*lead, 4), dtype=torch.float32, device=dev)
+        fn = lib.delta_stats_sorted_launch
+        fn.argtypes = [_P] * 7 + [_I] * 3 + [_P]
+        fn.restype = _I
+        if fn(*(t.data_ptr() for t in args), out.data_ptr(),
+              math.prod(lead), prep[0].shape[-1], prep[4].shape[-1],
+              dispatch.stream_handle(dev)):
+            raise RuntimeError("baseline delta_stats launch failed")
+        return out[..., 0], out[..., 1], out[..., 2]
+    return fused
+
+
+def parent_vnge_q_stats(lib):
+    """`vnge_q_stats_cuda` as the two-launch wrapper made it: ``lib``'s
+    partial count, partials and output allocated, both launches."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+
+    def stats(w):
+        if w.dim() != 2 or w.shape[0] != w.shape[1]:
+            raise ValueError("vnge_q: W must be square")
+        n = w.shape[0]
+        dispatch.check_operands("vnge_q", w.device,
+                                [("W", w, (n, n), torch.float32)])
+        lib.vnge_q_partial_blocks.argtypes = [_I]
+        lib.vnge_q_partial_blocks.restype = _I
+        blocks = lib.vnge_q_partial_blocks(n)
+        partial = torch.empty((max(blocks, 1), 4), dtype=torch.float32,
+                              device=w.device)
+        out = torch.empty((4,), dtype=torch.float32, device=w.device)
+        fn = lib.vnge_q_stats_launch
+        fn.argtypes = [_P, _P, _P, _I, _P]
+        fn.restype = _I
+        if fn(w.data_ptr(), partial.data_ptr(), out.data_ptr(), n,
+              dispatch.stream_handle(w.device)):
+            raise RuntimeError("baseline vnge_q launch failed")
+        return out
+    return stats
+
+
+def ab_delta_stats(base, args, res):
+    import numpy as np
+    import torch
+
+    from chip_smoke import N_PAD, Fleet, cuda_ms
+    from repro_torch.core.incremental import gate_delta_for_update
+    from repro_torch.core.jsdist import jsdist_incremental
+    from repro_torch.core.state import finger_state
+    from repro_torch.engine.stream import stack_deltas
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.delta_stats import ops as ds_ops
+    from repro_torch.kernels.delta_stats import parity as ds_parity
+
+    dev = torch.device("cuda")
+    fleet = Fleet(1, args.seed + 2, n_lo=N_PAD, n_hi=N_PAD)
+    g = fleet.graph_at(0, fleet.w[0], fleet.active[0], dev)
+    state = finger_state(g)
+    deltas = stack_deltas([fleet.tick().map_tensors(lambda x: x[0])
+                           for _ in range(20)]).to(dev)
+    delta, _ = gate_delta_for_update(state.node_mask,
+                                     deltas.map_tensors(lambda x: x[0]))
+    fused = {"baseline": parent_delta_stats_fused(base["delta_stats"]),
+             "change": ds_ops.delta_stats_fused}
+    want = ds_parity.plain(state.strengths, delta)
+    for who, fn in fused.items():
+        got = torch.stack(fn(state, delta, pre_gated=True))
+        ds_parity.compare(got, want[:3], f"delta_stats {who}")
+    print(f"  delta_stats n_pad={N_PAD} k_pad={delta.dw.shape[-1]} "
+          f"|dV|={int(want[3])}: both match the plain version")
+    res["delta_stats whole call"] = turns(
+        "delta_stats_fused, whole call from the gated delta",
+        {w: (lambda fn=fn: fn(state, delta, pre_gated=True))
+         for w, fn in fused.items()}, 200)
+    prep = ds_ops.prepare_sorted_delta(state.strengths, delta)
+    sorted_fn = base["delta_stats"].delta_stats_sorted_launch
+    sorted_fn.argtypes = [_P] * 7 + [_I] * 3 + [_P]
+    sorted_fn.restype = _I
+    out = torch.empty(4, device=dev)
+
+    def sorted_launch():
+        if sorted_fn(*(t.data_ptr() for t in prep), out.data_ptr(), 1,
+                     prep[0].shape[-1], prep[4].shape[-1],
+                     dispatch.stream_handle(dev)):
+            raise RuntimeError("baseline delta_stats launch failed")
+
+    res["delta_stats launch alone"] = turns(
+        "delta_stats launch alone (baseline: the sorted-form kernel on "
+        "prepared inputs)",
+        {"baseline": sorted_launch,
+         "change": lambda: ds_ops.delta_stats_cuda(state.strengths, delta)},
+        200)
+    res["empty launch"] = cuda_ms(
+        lambda: dispatch.empty_launch("delta_stats", dev), 200)
+    print(f"  one empty launch through the change's ctypes path: "
+          f"{res['empty launch']:.4f} ms")
+
+    def path(who):
+        """Median ms of jsdist_incremental a delta over the 20 deltas,
+        with ``who``'s delta_stats_fused in update_state."""
+        saved = ds_ops.delta_stats_fused
+        ds_ops.delta_stats_fused = fused[who]
+        try:
+            ev = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) for _ in range(20)]
+            st = state
+            torch.cuda.synchronize()
+            for t, (e0, e1) in enumerate(ev):
+                e0.record()
+                _, st = jsdist_incremental(
+                    st, deltas.map_tensors(lambda x: x[t]), exact_smax=True,
+                    method="fused_tick")
+                e1.record()
+            torch.cuda.synchronize()
+            return float(np.median([a.elapsed_time(b) for a, b in ev]))
+        finally:
+            ds_ops.delta_stats_fused = saved
+
+    got = {"baseline": [], "change": []}
+    for who in ("baseline", "change", "change", "baseline"):
+        got[who].append(path(who))
+    print(f"  jsdist_incremental(fused_tick) median a delta: baseline "
+          f"{got['baseline'][0]:.4f} / {got['baseline'][1]:.4f} ms, change "
+          f"{got['change'][0]:.4f} / {got['change'][1]:.4f} ms")
+    res["jsdist_incremental a delta"] = got
+
+
+def ab_vnge_q(base, args, res):
+    import torch
+
+    from chip_smoke import cuda_ms
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.vnge_q import ops as vq_ops
+    from repro_torch.kernels.vnge_q import parity as vq_parity
+    from repro_torch.kernels.vnge_q.ref import vnge_q_stats_ref
+
+    dev = torch.device("cuda")
+    fns = {"baseline": parent_vnge_q_stats(base["vnge_q"]),
+           "change": vq_ops.vnge_q_stats}
+    for n in (40, 1000, 8192):
+        w, _ = vq_parity.make_case(n, seed=args.seed + n, device=dev)
+        got = {who: fn(w) for who, fn in fns.items()}
+        for who, g in got.items():
+            vq_parity.compare(g, vnge_q_stats_ref(w), f"vnge_q {who} n={n}")
+        print(f"  vnge_q n={n}: both match the plain version")
+        res[f"vnge_q n={n}"] = turns(
+            f"vnge_q_stats n={n}, whole call",
+            {who: (lambda fn=fn: fn(w)) for who, fn in fns.items()}, 200)
+    res["vnge_q empty launch"] = cuda_ms(
+        lambda: dispatch.empty_launch("vnge_q", dev), 200)
+    print(f"  one empty launch through the change's ctypes path: "
+          f"{res['vnge_q empty launch']:.4f} ms")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", required=True, type=Path)
@@ -339,19 +530,21 @@ def main() -> int:
     # a baseline without its own residency export gets the helper
     own = "stream_tick_residency" in (base_csrc / "stream_tick.cu") \
         .read_text()
+    stems = ("stream_tick", "sparse_tick", "bsr_spmv", "delta_stats",
+             "vnge_q")
     base = build(base_csrc, ROOT / "build" / "kernel_ab" / "baseline",
-                 ("stream_tick", "sparse_tick", "bsr_spmv"),
-                 None if own else {"occupancy": OCCUPANCY_SRC})
+                 stems, None if own else {"occupancy": OCCUPANCY_SRC})
     base["residency"] = ((base["stream_tick"], "stream_tick_residency")
                          if own else
                          (base["occupancy"], "baseline_tick_residency"))
     libs = build(args.change.resolve() / "src" / "repro_torch" / "csrc",
-                 ROOT / "build" / "kernel_ab" / "change",
-                 ("stream_tick", "sparse_tick", "bsr_spmv"))
+                 ROOT / "build" / "kernel_ab" / "change", stems)
     res = {"card": card}
     ab_stream_tick(libs, base, args, res)
     ab_sparse_tick(libs, base, args, res)
     ab_bsr(libs, base, args, res)
+    ab_delta_stats(base, args, res)
+    ab_vnge_q(base, args, res)
     out = ROOT / "build" / "kernel_ab.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(res, indent=1))
