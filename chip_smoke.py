@@ -32,9 +32,11 @@ line of its own; any failure exits non-zero:
              32), both ``exact_smax`` values, out of place and in place,
              and ``sparse_tick_fused_stacked`` at S = 2; ``vnge_q`` at
              n = 40, 1000 (ragged) and 8192, with and without a node
-             mask; ``entropy_probe``'s row stats and graph stats at
-             (BH, S) = (192, 128), (48, 1000) (ragged) and (192, 1024)
-             on causal -1e30-masked logits; ``bsr_matvec`` on the cases
+             mask; ``entropy_probe``'s row stats and graph stats (the
+             closed (BH, 4) statistics) at (BH, S) = (192, 128),
+             (48, 1000) (ragged) and (192, 1024) on causal
+             -1e30-masked logits, each launched twice and bit-equal;
+             ``bsr_matvec`` on the cases
              of `kernels/bsr_spmv/parity.py` (ragged n = 300 at b = 128,
              b = 64, max_bpr = 1, a stripe of padding only, strongly
              uneven stripe counts from max_bpr down to 0, n = 32768),
@@ -144,7 +146,10 @@ tick's state and slot-space delta, ``delta_stats`` as the whole
 delta, ``stream_tick_fused_stacked`` out of place on phase 2's stacked
 case, ``vnge_q`` as the whole `vnge_q_stats` call on the trained
 model's routing graph and the probe
-kernels on its probe logits (each also at phase 2's largest shape),
+kernels on its probe logits (each also at phase 2's largest shape,
+with the whole `attention_graph_stats` call at both shapes and, as the
+row stats' ``library_ms``, ``torch.logsumexp(x, -1)``: the same read
+and reduction with one output),
 ``bsr_matvec`` on phase 7's G with, as ``library_ms``, cuSPARSE's BSR
 matvec through ``torch.sparse_bsr_tensor(...) @ x`` on the same matrix
 without its padding slots (timed only; the port never calls it).
@@ -153,9 +158,9 @@ Bounds come from the bytes each launch must move at the H100's 3.35 TB/s
 this run's delta changes, and the edge-store slots its gated lanes
 write, as written. The ``stream_tick`` fixed cost is also timed with
 every edge lane masked and with the first 32 lanes only; beside the
-``delta_stats`` and ``vnge_q`` rows (``empty_launch_ms``), one launch of
-an empty kernel through the same library's ctypes path, the floor of a
-one-launch op. The line before
+``delta_stats``, ``vnge_q``, ``row_stats`` and ``graph_stats`` rows
+(``empty_launch_ms``), one launch of an empty kernel through the same
+library's ctypes path, the floor of a one-launch op. The line before
 the last is the ``kernels`` JSON object; the last line is the device
 JSON object. Scores and state are compared at the tolerances stated in
 the parity modules (atol 1e-5, rtol 1e-5; the score as a divergence;
@@ -712,6 +717,8 @@ def check_bits(torch, label, got, *others) -> None:
 def phase_kernels_train(args, errs, dev):
     """Phase 2, the train path's kernels: ``vnge_q`` and the two
     ``entropy_probe`` kernels against their plain versions."""
+    import torch
+
     from repro_torch.kernels.entropy_probe import ops as ep_ops
     from repro_torch.kernels.entropy_probe import parity as ep_parity
     from repro_torch.kernels.entropy_probe import ref as ep_ref
@@ -732,20 +739,27 @@ def phase_kernels_train(args, errs, dev):
     for bh, s in PROBE_SHAPES:
         x = ep_parity.make_case(bh, s, seed=args.seed + s, device=dev)
         rows = ep_ops.row_stats_cuda(x)
+        again = ep_ops.row_stats_cuda(x)
         e1 = ep_parity.compare(rows, ep_ref.row_stats_ref(x),
                                f"row_stats {(bh, s)}")
-        e2 = ep_parity.compare(ep_ops.graph_stats_cuda(x, *rows),
-                               ep_ref.graph_stats_ref(x, *rows),
+        graph = ep_ops.graph_stats_cuda(x, *rows)
+        graph_again = ep_ops.graph_stats_cuda(x, *rows)
+        e2 = ep_parity.compare([graph], [ep_ref.graph_stats_ref(x, *rows)],
                                f"graph_stats {(bh, s)}")
         e3 = ep_parity.compare([ep_ops.attention_graph_stats(x)],
                                [ep_ref.attention_graph_stats_ref(x)],
                                f"attention_graph_stats {(bh, s)}")
+        if not (all(map(torch.equal, rows, again))
+                and torch.equal(graph, graph_again)):
+            raise AssertionError(f"entropy_probe {(bh, s)}: launches on "
+                                 "the same inputs gave other bits")
         errs["row_stats"] = max(errs["row_stats"], e1)
         errs["graph_stats"] = max(errs["graph_stats"], e2)
         print(f"  entropy_probe BH,S={(bh, s)} causal: row_stats "
-              f"max_abs_err={e1:.3e}, graph_stats {e2:.3e}; closed "
-              f"statistics vs the oracle {e3:.3e}")
-        del x, rows
+              f"max_abs_err={e1:.3e}, graph_stats (closed) {e2:.3e}, each "
+              f"launched twice bit-equal; the whole op vs the oracle "
+              f"{e3:.3e}")
+        del x, rows, again
 
 
 def phase_kernels_bsr(args, torch, errs, dev):
@@ -1538,26 +1552,37 @@ def train_rows(torch, out, dev):
     errs["row_stats"] = max(errs["row_stats"], ep_parity.compare(
         rows_in, ep_ref.row_stats_ref(logits), "path row_stats"))
     errs["graph_stats"] = max(errs["graph_stats"], ep_parity.compare(
-        ep_ops.graph_stats_cuda(logits, *rows_in),
-        ep_ref.graph_stats_ref(logits, *rows_in), "path graph_stats"))
+        [ep_ops.graph_stats_cuda(logits, *rows_in)],
+        [ep_ref.graph_stats_ref(logits, *rows_in)], "path graph_stats"))
 
     def vnge_times(w):
         n = w.shape[0]
-        return (cuda_ms(lambda: vq_ops.vnge_q_stats(w), 200),
-                cuda_ms(lambda: vnge_q_stats_ref(w), 50),
-                (4 * n * n + 16) / HBM_BYTES_PER_S * 1e3)
+        return {"ms": cuda_ms(lambda: vq_ops.vnge_q_stats(w), 200),
+                "plain_ms": cuda_ms(lambda: vnge_q_stats_ref(w), 50),
+                "bound_ms": (4 * n * n + 16) / HBM_BYTES_PER_S * 1e3,
+                "library_ms": None}
 
     def probe_times(x):
+        """Each probe kernel's wrapper alone, its plain version, its
+        bytes bound and (row stats) `torch.logsumexp`, the same read and
+        reduction with one output; and the whole `attention_graph_stats`
+        call."""
         bh, s, _ = x.shape
         rm, dn = ep_ops.row_stats_cuda(x)
         big = 4 * bh * s * s
-        return ((cuda_ms(lambda: ep_ops.row_stats_cuda(x), 100),
-                 cuda_ms(lambda: ep_ref.row_stats_ref(x), 20),
-                 (big + 8 * bh * s) / HBM_BYTES_PER_S * 1e3),
-                (cuda_ms(lambda: ep_ops.graph_stats_cuda(x, rm, dn), 100),
-                 cuda_ms(lambda: ep_ref.graph_stats_ref(x, rm, dn), 20),
-                 (big + 8 * bh * s + 12 * bh + 8 * bh * s)
-                 / HBM_BYTES_PER_S * 1e3))
+        whole = cuda_ms(lambda: ep_ops.attention_graph_stats(x), 100)
+        return ({"ms": cuda_ms(lambda: ep_ops.row_stats_cuda(x), 100),
+                 "plain_ms": cuda_ms(lambda: ep_ref.row_stats_ref(x), 20),
+                 "bound_ms": (big + 8 * bh * s) / HBM_BYTES_PER_S * 1e3,
+                 "library_ms": cuda_ms(lambda: torch.logsumexp(x, -1), 100),
+                 "whole_call_ms": whole},
+                {"ms": cuda_ms(lambda: ep_ops.graph_stats_cuda(x, rm, dn),
+                               100),
+                 "plain_ms": cuda_ms(lambda: ep_ref.graph_stats_ref(x, rm,
+                                                                    dn), 20),
+                 "bound_ms": (big + 8 * bh * s + 16 * bh)
+                 / HBM_BYTES_PER_S * 1e3,
+                 "library_ms": None, "whole_call_ms": whole})
 
     big_n = VNGE_NS[-1]
     big_bh, big_s = PROBE_SHAPES[-1]
@@ -1575,27 +1600,37 @@ def train_rows(torch, out, dev):
                            "src/repro/kernels/entropy_probe/kernel.py:35"),
              "graph_stats": ("src/repro_torch/csrc/entropy_probe.cu",
                              "src/repro/kernels/entropy_probe/kernel.py:42")}
-    empty = cuda_ms(lambda: dispatch.empty_launch("vnge_q", dev), 200)
-    print(f"  one empty launch through vnge_q's ctypes path: {empty:.4f} ms")
+    empty = {lib: cuda_ms(lambda lib=lib: dispatch.empty_launch(lib, dev),
+                          200)
+             for lib in ("vnge_q", "entropy_probe")}
+    print(f"  one empty launch through vnge_q's ctypes path: "
+          f"{empty['vnge_q']:.4f} ms; through entropy_probe's: "
+          f"{empty['entropy_probe']:.4f} ms")
+    print(f"  attention_graph_stats, whole call: "
+          f"{path_t[0]['whole_call_ms']:.4f} ms at the path's shape "
+          f"{tuple(logits.shape[:2])}, {big_t[0]['whole_call_ms']:.4f} ms "
+          f"at {(big_bh, big_s)}")
     rows = []
     for name, (path, big, shape, big_shape) in timed.items():
-        print(f"  {name} at the path's shape {shape}: {path[0]:.4f} ms "
-              f"(plain {path[1]:.4f} ms, bound {path[2]:.6f} ms); at "
-              f"{big_shape}: {big[0]:.4f} ms (plain {big[1]:.4f} ms, bound "
-              f"{big[2]:.6f} ms)")
+        lib = "" if path["library_ms"] is None else (
+            f"; library {path['library_ms']:.4f} / "
+            f"{big['library_ms']:.4f} ms")
+        print(f"  {name} at the path's shape {shape}: {path['ms']:.4f} ms "
+              f"(plain {path['plain_ms']:.4f} ms, bound "
+              f"{path['bound_ms']:.6f} ms); at {big_shape}: "
+              f"{big['ms']:.4f} ms (plain {big['plain_ms']:.4f} ms, bound "
+              f"{big['bound_ms']:.6f} ms){lib}")
         rows.append({
             "name": name, "route": "cuda", "source": where[name][0],
             "replaces": where[name][1],
             "launches": out["launches"][name], "max_abs_err": errs[name],
-            "ms": path[0], "plain_ms": path[1], "bound_ms": path[2],
-            "bound_by": "bytes", "library_ms": None,
-            "shape": list(shape), "large": {
-                "shape": list(big_shape), "ms": big[0], "plain_ms": big[1],
-                "bound_ms": big[2]}})
-        if name == "vnge_q":
-            rows[-1]["empty_launch_ms"] = empty
+            **path, "bound_by": "bytes", "shape": list(shape),
+            "large": {"shape": list(big_shape), **big},
+            "empty_launch_ms": empty["vnge_q" if name == "vnge_q"
+                                     else "entropy_probe"]})
         print_row(rows[-1])
     return rows
+
 
 def offline_edges(seed: int):
     """The offline phase's three graphs as numpy edge lists (lo, hi, w):

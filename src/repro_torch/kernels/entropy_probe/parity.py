@@ -3,9 +3,9 @@
 `make_case` builds seeded (BH, S, S) attention logits, by default with
 the causal -1e30 mask the training probe applies (every row keeps its
 diagonal). `compare` holds a tuple of kernel outputs against the plain
-versions' — the row stats (row max, exp-sum) on the logits, the graph
-stats (scalars, colsum, diag) on the same logits and row stats, or the
-closed (BH, 4) statistics.
+versions' — the row stats (row max, exp-sum) on the logits, or the
+graph stats, the closed (BH, 4) statistics, on the same logits and row
+stats.
 
 Tolerance: rtol 5e-4 with atol 1e-5, the reference's own kernel test
 (`tests/test_kernels.py::TestEntropyProbe`): the exp-sums and the tile

@@ -413,21 +413,29 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.core.incremental import gate_delta_for_update
 from repro_torch.kernels.delta_stats import ops as ds_ops
 from repro_torch.kernels.delta_stats import parity as ds_parity
+from repro_torch.kernels.entropy_probe import ops as ep_ops
+from repro_torch.kernels.entropy_probe import parity as ep_parity
 from repro_torch.kernels.vnge_q import ops as vq_ops
 from repro_torch.kernels.vnge_q import parity as vq_parity
 dev = torch.device("cuda")
 state, delta = ds_parity.make_case(1024, 128, seed=1, device=dev)
 delta = gate_delta_for_update(state.node_mask, delta)[0]
 ws = [vq_parity.make_case(n, seed=n, device=dev)[0] for n in (40, 8192)]
+xs = [ep_parity.make_case(bh, s, seed=s, device=dev)
+      for bh, s in ((192, 128), (8, 1024))]
 ds_ops.delta_stats_fused(state, delta, pre_gated=True)
 for w in ws:
     vq_ops.vnge_q_stats(w)
+for x in xs:
+    ep_ops.attention_graph_stats(x)
 torch.cuda.synchronize()
 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
     for _ in range(10):
         ds_ops.delta_stats_fused(state, delta, pre_gated=True)
         for w in ws:
             vq_ops.vnge_q_stats(w)
+        for x in xs:
+            ep_ops.attention_graph_stats(x)
     torch.cuda.synchronize()
 p.export_chrome_trace(sys.argv[1])
 events = json.load(open(sys.argv[1]))["traceEvents"]
@@ -440,9 +448,11 @@ print(json.dumps(names))
 def test_one_device_kernel_a_call(cuda, tmp_path):
     """torch.profiler, in a process of its own (a second session in one
     process records no device events): 10 calls of `delta_stats_fused`
-    from the gated delta and 20 of `vnge_q_stats` (n = 40 and 8192) run
-    exactly 30 device operations, all kernels: 10 of delta_stats and 20
-    of vnge_q."""
+    from the gated delta, 20 of `vnge_q_stats` (n = 40 and 8192) and 20
+    of `attention_graph_stats` ((BH, S) = (192, 128) and (8, 1024)) run
+    exactly 70 device operations, all kernels, no memset and no copy:
+    10 of delta_stats, 20 of vnge_q, 20 of row_stats and 20 of
+    graph_stats."""
     import json
     import os
     import subprocess
@@ -455,22 +465,30 @@ def test_one_device_kernel_a_call(cuda, tmp_path):
         capture_output=True, text=True, env=env, timeout=600)
     assert proc.returncode == 0, proc.stderr
     names = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert len(names) == 30, names
+    assert len(names) == 70, names
     assert sum("delta_stats" in n for n in names) == 10, names
     assert sum("vnge_q" in n for n in names) == 20, names
+    assert sum("row_stats" in n for n in names) == 20, names
+    assert sum("graph_stats" in n for n in names) == 20, names
 
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("bh,s", [(192, 128), (48, 1000), (3, 1),
-                                  (5, 65), (8, 1024)])
+                                  (5, 65), (8, 1024), (2, 1027), (2, 1500)])
 def test_entropy_probe_kernels_match_plain(cuda, bh, s, causal):
-    """(192, 128) is the training probe; 1000, 1 and 65 are ragged."""
+    """(192, 128) is the training probe; 1000, 1, 65, 1027 and 1500 are
+    ragged (65 and 1027 without 128-bit loads; rows above 1024 take the
+    row stats' chunked online merge). The row stats are two views of one
+    (2, BH, S) output; the graph stats are the closed (BH, 4)
+    statistics."""
     x = ep_parity.make_case(bh, s, seed=s, device=cuda, causal=causal)
     before = dict(ep_ops.LAUNCHES)
     rows = ep_ops.row_stats_cuda(x)
     ep_parity.compare(rows, ep_ref.row_stats_ref(x), f"row_stats {s}")
+    assert rows[1].data_ptr() == rows[0].data_ptr() + 4 * bh * s
     got = ep_ops.graph_stats_cuda(x, *rows)
-    ep_parity.compare(got, ep_ref.graph_stats_ref(x, *rows),
+    assert got.shape == (bh, 4)
+    ep_parity.compare([got], [ep_ref.graph_stats_ref(x, *rows)],
                       f"graph_stats {s}")
     assert ep_ops.LAUNCHES == {k: v + 1 for k, v in before.items()}
     ep_parity.compare([ep_ops.attention_graph_stats(x)],
@@ -483,6 +501,64 @@ def test_entropy_probe_repeats_bit_for_bit(cuda):
     a = ep_ops.attention_graph_stats(x)
     b = ep_ops.attention_graph_stats(x)
     torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_entropy_probe_workspace_is_reused_and_bits_repeat(cuda):
+    """Shapes up and down on one stream's cached workspace (the per-head
+    counters are reset by each launch): every result bit-equal to the
+    first call at its shape, two launches and two allocations (the two
+    outputs) a call."""
+    xs = {shape: ep_parity.make_case(*shape, seed=shape[1], device=cuda)
+          for shape in ((192, 128), (8, 1024), (5, 65), (48, 1000))}
+    first = {k: ep_ops.attention_graph_stats(x) for k, x in xs.items()}
+    before = dict(ep_ops.LAUNCHES)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    order = ((8, 1024), (5, 65), (192, 128), (48, 1000), (8, 1024))
+    got = [ep_ops.attention_graph_stats(xs[k]) for k in order]
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] \
+        == allocs + 2 * len(order)
+    assert ep_ops.LAUNCHES == {k: v + len(order) for k, v in before.items()}
+    for k, g in zip(order, got):
+        torch.testing.assert_close(g, first[k], atol=0, rtol=0)
+        ep_parity.compare([g], [ep_ref.attention_graph_stats_ref(xs[k])],
+                          f"attention_graph_stats {k}")
+    stream = torch.cuda.current_stream().cuda_stream
+    work, counter = ep_ops._WORKSPACE[(cuda.index or 0, stream)]
+    assert work.numel() >= 192 * ep_ops._head_floats(128)
+    assert work.numel() >= 48 * ep_ops._head_floats(1000)
+    assert counter.numel() >= 192
+    assert int(counter.abs().sum()) == 0
+
+
+def test_entropy_probe_on_two_streams(cuda):
+    """Two side streams at once, each with its own workspace and
+    counters: the same bits as the default stream's call."""
+    x = ep_parity.make_case(48, 1000, seed=5, device=cuda)
+    want = ep_ops.attention_graph_stats(x)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            outs.append([ep_ops.attention_graph_stats(x) for _ in range(20)])
+    torch.cuda.synchronize()
+    for got in (o for batch in outs for o in batch):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    keys = {(cuda.index or 0, s.cuda_stream) for s in streams}
+    assert keys <= set(ep_ops._WORKSPACE)
+
+
+def test_entropy_probe_refuses_by_name(cuda):
+    x = ep_parity.make_case(4, 64, seed=0, device=cuda)
+    rm, dn = ep_ops.row_stats_cuda(x)
+    with pytest.raises(TypeError, match="float32"):
+        ep_ops.row_stats_cuda(x.double())
+    with pytest.raises(ValueError, match="not contiguous"):
+        ep_ops.row_stats_cuda(x.transpose(1, 2))
+    with pytest.raises(ValueError, match="BH, S, S"):
+        ep_ops.graph_stats_cuda(x[:, :32], rm, dn)
+    with pytest.raises(ValueError, match="denom"):
+        ep_ops.graph_stats_cuda(x, rm, dn[:2])
 
 
 @pytest.mark.parametrize("label", list(bs_parity.CASES))

@@ -5,9 +5,10 @@ against the JAX reference on the CPU.
   and its Pallas kernel in interpret mode, ragged n included, with and
   without a node mask, at the reference's kernel-test tolerance
   (rtol 3e-5, atol 1e-5).
-- ``entropy_probe``: the plain versions of the two kernels (row stats,
-  graph stats) against the reference's Pallas kernels in interpret
-  mode, and the closed statistics against the reference's oracle, ragged
+- ``entropy_probe``: the plain row stats and graph parts against the
+  reference's Pallas kernels in interpret mode; the closed statistics
+  (the plain graph-stats kernel's output, and the op's) against the
+  port's oracle, the reference's oracle and the reference's op, ragged
   S included, at rtol 5e-4, atol 1e-5.
 - The probes: `attention_entropy_probe` against the reference's at
   ``use_pallas=False`` and ``True`` (rtol 5e-4, atol 1e-5);
@@ -107,7 +108,7 @@ def test_telemetry_closings_keep_the_references_empty_graph_value():
 def test_entropy_probe_plain_kernels_match_interpret_kernels(bh, s):
     x = ep_parity.make_case(bh, s, seed=s, device="cpu")
     rm, dn = ep_ref.row_stats_ref(x)
-    scal, colsum, diag = ep_ref.graph_stats_ref(x, rm, dn)
+    scal, colsum, diag = ep_ref.graph_parts_ref(x, rm, dn)
     want = attention_graph_stats_pallas(jnp.asarray(x.numpy()), bs=128,
                                         interpret=True)
     for g, w, lab in zip((scal, colsum, diag), want,
@@ -134,6 +135,22 @@ def test_entropy_probe_stats_match_oracle_and_reference_op(bh, s, causal):
         ep_ops.attention_graph_entropy(x).numpy(),
         np.asarray(jax_ep_ops.attention_graph_entropy(jx, use_pallas=False)),
         **EP)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,s", [(2, 128), (2, 100), (1, 200)])
+def test_entropy_probe_closed_graph_stats_match_oracles(bh, s, causal):
+    """The graph-stats kernel's plain version returns the closed (BH, 4)
+    statistics from the row stats: held against the port's oracle and
+    the reference's plain op on the same numpy logits."""
+    x = ep_parity.make_case(bh, s, seed=11 * s, device="cpu", causal=causal)
+    got = ep_ref.graph_stats_ref(x, *ep_ref.row_stats_ref(x))
+    assert got.shape == (bh, 4)
+    np.testing.assert_allclose(
+        got.numpy(), ep_ref.attention_graph_stats_ref(x).numpy(), **EP)
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        jax_ep_ops.attention_graph_stats(jnp.asarray(x.numpy()),
+                                         use_pallas=False)), **EP)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])

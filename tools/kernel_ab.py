@@ -3,6 +3,7 @@
 one NVIDIA GPU, on the same inputs.
 
     python3 tools/kernel_ab.py --baseline DIR [--change DIR] [--seed S]
+                               [--only NAME ...]
 
 Each ``DIR`` holds a checkout's ``src/repro_torch/csrc`` sources (for
 example ``git archive <commit> src/repro_torch/csrc | tar -x -C DIR``);
@@ -37,10 +38,23 @@ interface of this checkout. Inputs, from ``--seed``:
   output allocated, signatures set, per call) against this checkout's
   `vnge_q_stats`, both against the plain version.
 
-The change side of ``delta_stats`` and ``vnge_q`` is this checkout's
-wrappers and library (``--change`` moves the other kernels only); each
-also times one empty launch through this checkout's ctypes path, the
-floor of a one-launch op.
+- ``entropy_probe`` at (BH, S) = (192, 128) (the training probe),
+  (48, 1000) (ragged) and (192, 1024), causal: the whole
+  `attention_graph_stats` call, the baseline's as its two-kernel
+  wrapper made it (signatures set per call, the row stats' two outputs,
+  the graph stats' five buffers, two launches, then the plain closing
+  `stats_from_parts`) against this checkout's; each kernel's wrapper
+  alone; and, as the row stats' yardstick, ``torch.logsumexp(x, -1)``
+  (the same read and reduction, one output). At (192, 128) also the
+  host time to enqueue each of this checkout's calls and, from one
+  `torch.profiler` session, each kernel's device time in a whole call.
+
+The change side of ``delta_stats``, ``vnge_q`` and ``entropy_probe`` is
+this checkout's wrappers and library (``--change`` moves the other
+kernels only); each also times one empty launch through this checkout's
+ctypes path, the floor of a one-launch op. ``--only`` runs a subset of
+the A/Bs (by the names above); the baseline must hold every source the
+chosen ones build.
 
 The change's outputs are held against the plain versions (the parity
 modules' tolerances), and the two sets against each other. Prints the
@@ -394,7 +408,156 @@ def parent_vnge_q_stats(lib):
     return stats
 
 
-def ab_delta_stats(base, args, res):
+def parent_entropy_probe(lib):
+    """(row stats, graph stats, whole call) as the two-kernel wrappers
+    made them: signatures set per call, the row max and exp-sum as two
+    outputs, then the tile pass and the per-head reduction into five
+    buffers, closed by `stats_from_parts` in torch."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.entropy_probe.ref import stats_from_parts
+
+    def rows(x):
+        bh, s, _ = x.shape
+        rowmax = torch.empty((bh, s), dtype=torch.float32, device=x.device)
+        denom = torch.empty_like(rowmax)
+        fn = lib.row_stats_launch
+        fn.argtypes = [_P, _P, _P, ctypes.c_longlong, _I, _P]
+        fn.restype = _I
+        if fn(x.data_ptr(), rowmax.data_ptr(), denom.data_ptr(), bh * s, s,
+              dispatch.stream_handle(x.device)):
+            raise RuntimeError("baseline row_stats launch failed")
+        return rowmax, denom
+
+    def graph(x, rowmax, denom):
+        bh, s, _ = x.shape
+        dev = x.device
+        for f in (lib.entropy_probe_tiles, lib.entropy_probe_pairs):
+            f.argtypes, f.restype = [_I], _I
+        tiles, pairs = lib.entropy_probe_tiles(s), lib.entropy_probe_pairs(s)
+        part_col = torch.empty((bh, tiles, s), dtype=torch.float32,
+                               device=dev)
+        part_scal = torch.empty((bh, pairs, 2), dtype=torch.float32,
+                                device=dev)
+        scal = torch.empty((bh, 3), dtype=torch.float32, device=dev)
+        colsum = torch.empty((bh, s), dtype=torch.float32, device=dev)
+        diag = torch.empty((bh, s), dtype=torch.float32, device=dev)
+        fn = lib.graph_stats_launch
+        fn.argtypes = [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P]
+        fn.restype = _I
+        if fn(x.data_ptr(), rowmax.data_ptr(), denom.data_ptr(), bh, s,
+              part_col.data_ptr(), part_scal.data_ptr(), scal.data_ptr(),
+              colsum.data_ptr(), diag.data_ptr(),
+              dispatch.stream_handle(dev)):
+            raise RuntimeError("baseline graph_stats launch failed")
+        return scal, colsum, diag
+
+    def whole(x):
+        return stats_from_parts(*graph(x, *rows(x)))
+
+    return rows, graph, whole
+
+
+def host_ms(fn, reps: int = 300) -> float:
+    """Mean host milliseconds to enqueue one call of ``fn`` (no sync in
+    the timed loop): where it is above the device time, a back-to-back
+    call is bound by the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def device_ms(fn, reps: int = 50) -> dict:
+    """Mean device milliseconds a call of each kernel ``fn`` launches, by
+    kernel name, from one `torch.profiler` session (the process's only
+    one: a second records no device events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / reps / 1e3
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def ab_entropy_probe(libs, base, args, res):
+    import torch
+
+    from chip_smoke import PROBE_SHAPES, cuda_ms
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.entropy_probe import ops as ep_ops
+    from repro_torch.kernels.entropy_probe import parity as ep_parity
+    from repro_torch.kernels.entropy_probe import ref as ep_ref
+
+    dev = torch.device("cuda")
+    b_rows, b_graph, b_whole = parent_entropy_probe(base["entropy_probe"])
+    for bh, s in PROBE_SHAPES:
+        x = ep_parity.make_case(bh, s, seed=args.seed + s, device=dev)
+        rows = ep_ref.row_stats_ref(x)
+        want = ep_ref.attention_graph_stats_ref(x)
+        ep_parity.compare(b_rows(x), rows, f"baseline row_stats {s}")
+        ep_parity.compare(ep_ops.row_stats_cuda(x), rows,
+                          f"change row_stats {s}")
+        ep_parity.compare([b_whole(x)], [want], f"baseline whole {s}")
+        ep_parity.compare([ep_ops.attention_graph_stats(x)], [want],
+                          f"change whole {s}")
+        print(f"  entropy_probe (BH, S)={(bh, s)}: both match the plain "
+              "versions")
+        label = f"entropy_probe {(bh, s)}"
+        res[f"{label} whole call"] = turns(
+            f"attention_graph_stats {(bh, s)}, whole call",
+            {"baseline": lambda: b_whole(x),
+             "change": lambda: ep_ops.attention_graph_stats(x)}, 100)
+        res[f"{label} row_stats"] = turns(
+            f"row_stats {(bh, s)}, the wrapper alone",
+            {"baseline": lambda: b_rows(x),
+             "change": lambda: ep_ops.row_stats_cuda(x)}, 100)
+        b_in, c_in = b_rows(x), ep_ops.row_stats_cuda(x)
+        res[f"{label} graph_stats"] = turns(
+            f"graph_stats {(bh, s)}, the wrapper alone (baseline: tile "
+            "pass + reduction, unclosed)",
+            {"baseline": lambda: b_graph(x, *b_in),
+             "change": lambda: ep_ops.graph_stats_cuda(x, *c_in)}, 100)
+        res[f"{label} logsumexp"] = cuda_ms(lambda: torch.logsumexp(x, -1),
+                                            100)
+        print(f"  torch.logsumexp(x, -1) {(bh, s)}: "
+              f"{res[f'{label} logsumexp']:.4f} ms")
+        if (bh, s) == PROBE_SHAPES[0]:  # the path's shape: host or device?
+            host = res[f"{label} host enqueue"] = {
+                "row_stats": host_ms(lambda: ep_ops.row_stats_cuda(x)),
+                "graph_stats": host_ms(
+                    lambda: ep_ops.graph_stats_cuda(x, *c_in)),
+                "whole call": host_ms(
+                    lambda: ep_ops.attention_graph_stats(x)),
+                "empty launch": host_ms(lambda: dispatch.empty_launch(
+                    "entropy_probe", dev))}
+            print(f"  host time to enqueue a call {(bh, s)}: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in host.items()))
+            dev_t = res[f"{label} device"] = device_ms(
+                lambda: ep_ops.attention_graph_stats(x))
+            print(f"  device time a whole call {(bh, s)} (torch.profiler): "
+                  + ", ".join(f"{k.split('::')[-1].split('(')[0]} "
+                              f"{v:.4f} ms" for k, v in dev_t.items()))
+        del x, rows, b_in, c_in
+    res["entropy_probe empty launch"] = cuda_ms(
+        lambda: dispatch.empty_launch("entropy_probe", dev), 200)
+    print(f"  one empty launch through the change's ctypes path: "
+          f"{res['entropy_probe empty launch']:.4f} ms")
+
+
+def ab_delta_stats(libs, base, args, res):
     import numpy as np
     import torch
 
@@ -480,7 +643,7 @@ def ab_delta_stats(base, args, res):
     res["jsdist_incremental a delta"] = got
 
 
-def ab_vnge_q(base, args, res):
+def ab_vnge_q(libs, base, args, res):
     import torch
 
     from chip_smoke import cuda_ms
@@ -508,11 +671,24 @@ def ab_vnge_q(base, args, res):
           f"{res['vnge_q empty launch']:.4f} ms")
 
 
+# name → (the A/B, the library stems it builds on both sides)
+AB = {
+    "stream_tick": (ab_stream_tick, ("stream_tick",)),
+    "sparse_tick": (ab_sparse_tick, ("sparse_tick",)),
+    "bsr_spmv": (ab_bsr, ("bsr_spmv",)),
+    "delta_stats": (ab_delta_stats, ("delta_stats",)),
+    "vnge_q": (ab_vnge_q, ("vnge_q",)),
+    "entropy_probe": (ab_entropy_probe, ("entropy_probe",)),
+}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", required=True, type=Path)
     ap.add_argument("--change", type=Path, default=ROOT)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", nargs="+", choices=sorted(AB),
+                    default=sorted(AB), help="the A/Bs to run")
     args = ap.parse_args()
 
     import torch
@@ -527,24 +703,24 @@ def main() -> int:
     print(f"card: {card}")
     base_csrc = args.baseline.resolve() / "src" / "repro_torch" / "csrc"
     print("building the baseline and the change with -Xptxas -v:")
-    # a baseline without its own residency export gets the helper
-    own = "stream_tick_residency" in (base_csrc / "stream_tick.cu") \
-        .read_text()
-    stems = ("stream_tick", "sparse_tick", "bsr_spmv", "delta_stats",
-             "vnge_q")
+    stems = sorted({s for name in args.only for s in AB[name][1]})
+    extra = None
+    if "stream_tick" in args.only:
+        # a baseline without its own residency export gets the helper
+        own = "stream_tick_residency" in (base_csrc / "stream_tick.cu") \
+            .read_text()
+        extra = None if own else {"occupancy": OCCUPANCY_SRC}
     base = build(base_csrc, ROOT / "build" / "kernel_ab" / "baseline",
-                 stems, None if own else {"occupancy": OCCUPANCY_SRC})
-    base["residency"] = ((base["stream_tick"], "stream_tick_residency")
-                         if own else
-                         (base["occupancy"], "baseline_tick_residency"))
+                 stems, extra)
+    if "stream_tick" in args.only:
+        base["residency"] = ((base["stream_tick"], "stream_tick_residency")
+                             if own else
+                             (base["occupancy"], "baseline_tick_residency"))
     libs = build(args.change.resolve() / "src" / "repro_torch" / "csrc",
                  ROOT / "build" / "kernel_ab" / "change", stems)
     res = {"card": card}
-    ab_stream_tick(libs, base, args, res)
-    ab_sparse_tick(libs, base, args, res)
-    ab_bsr(libs, base, args, res)
-    ab_delta_stats(base, args, res)
-    ab_vnge_q(base, args, res)
+    for name in sorted(args.only, key=list(AB).index):
+        AB[name][0](libs, base, args, res)
     out = ROOT / "build" / "kernel_ab.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(res, indent=1))
