@@ -64,16 +64,36 @@ line of its own; any failure exits non-zero:
              planted streams are the top 4; 64 sampled scores match the
              batch `jsdist_tilde` of the mirrored G and G' within 5e-3
              (the bound `tests/test_jsdist.py` holds Algorithm 2 to);
-             ``stream_tick`` launched once per tick. One more tick,
-             after the checks and outside the launch count, runs under
-             ``torch.profiler`` for the device's busy and idle share.
+             ``stream_tick`` launched once per tick. Then the serving
+             lifecycle: `save` the state, `FingerService.restore` it
+             twice (``ingestion="sync"`` and ``"double_buffered"``, each
+             bit-equal with the saved state) and run the same
+             ``LOOP_T`` = 10 ticks through both with no synchronisation
+             inside the loop (bit-equal; the median `poll` latency by
+             CUDA events, the median host time of `ingest`, the loop's
+             wall time and stream-ticks/s of each); two consecutive
+             double-buffered ticks under ``torch.profiler`` (the
+             side-stream copies, their overlap with the host's ingest
+             and poll and with the kernels, the device's busy and idle
+             share); `warm_next_layouts([2048])` on the double-buffered
+             service, `repad(2048)` with a tick queued on both services
+             (warm and cold), a tick, `compact()` reclaiming the grown
+             tail, and a tick of generation-0-stamped deltas with the
+             burst planted again (the grace remap). Checks: both
+             services bit-equal at every step; the warm plan installed;
+             the planted streams top 4 and 64 sampled scores within 5e-3
+             of batch `jsdist_tilde`; ``stream_tick`` launched once per
+             tick plus once for the warm; a last save and restore of the
+             migrated state bit-equal. Prints every save, restore,
+             warm, swap and compaction time.
 4. single  — `jsdist_incremental(method="fused_tick")` on one stream,
              delta by delta as `jsdist_stream` loops, for 20 deltas
              against `jsdist_stream(method="dense")`; ``delta_stats``
              launched twice a delta; prints the median time a delta
              (CUDA events around each call).
 5. sparse  — the sparse path: `FingerService.open(ServiceConfig(
-             method="sparse_tick", placement="local", ingestion="sync",
+             method="sparse_tick", placement="local",
+             ingestion="double_buffered",
              exact_smax=True, batch_size=4096, n_pad=2**20,
              n_slots=1024, m_pad=8192, k_pad=128, j_pad=8), graphs)`
              over virtual-space `EdgeList`s made one at a time (256–1024
@@ -88,7 +108,9 @@ line of its own; any failure exits non-zero:
              `jsdist_tilde` of their relabelled mirrored graphs within
              5e-3 after the growth, after the repad and at the end; the
              sampled streams' edge stores equal the mirror's weights at
-             their `SlotMap` slots and 0 elsewhere.
+             their `SlotMap` slots and 0 elsewhere. It ends with a
+             `save` and a `restore`: the `SlotMap` JSON equal, the state
+             bit-equal, and one more tick bit-equal on both services.
 6. train   — the training path: `repro_torch.launch.train.run` on
              granite-moe-3b-a800m at full width with ``n_layers=8`` (the
              only cut: 32 layers of f32 AdamW state are 53 GB), batch 8 ×
@@ -135,7 +157,8 @@ line of its own; any failure exits non-zero:
              card scores within 1e-4 of the CPU's (as divergences where
              JSdiv < 1e-3).
 
-Every wrapper's launch count is set to 0 just before phases 3, 4, 5, 6
+Each phase prints its seconds. Every wrapper's launch count is set to 0
+just before phases 3 (and again before its lifecycle part), 4, 5, 6
 and 7 and read just after each path; a kernel's ``launches`` in the
 kernels line is the sum over those paths. Kernel times are CUDA-event means of the
 launch each path makes, at its shapes and inputs: ``stream_tick`` in
@@ -192,6 +215,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 N_PAD, K_PAD, J_PAD = 1024, 128, 8
 TICKS = 20
+LOOP_T = 10  # phase 3's ticks under both ingestions after the restore
 PRIME_STRIDE = 8209  # a prime above every candidate count 8·n_e ≤ 8160
 # the sparse path: B streams in a 2^20-id virtual space, sized by slots
 N_VIRTUAL, SP_BATCH, SP_SLOTS, SP_M_PAD = 1 << 20, 4096, 1024, 8192
@@ -788,11 +812,24 @@ def phase_kernels_bsr(args, torch, errs, dev):
         del m, x, got, again
 
 
+def sampled_worst(fleet, sampled, before, scores, dev) -> float:
+    """Largest |score − batch jsdist_tilde| over the sampled streams,
+    on the mirror's graphs before and after the tick."""
+    from repro_torch.core.jsdist import jsdist_tilde
+
+    worst = 0.0
+    for r, b in enumerate(sampled):
+        g0 = fleet.graph_at(b, before[0][r], before[1][r], dev)
+        g1 = fleet.graph_at(b, fleet.w[b], fleet.active[b], dev)
+        worst = max(worst, abs(float(jsdist_tilde(g0, g1))
+                               - float(scores[b])))
+    return worst
+
+
 def phase_serve(args, torch, out, dev):
     """Phase 3: the main path through FingerService."""
     import numpy as np
 
-    from repro_torch.core.jsdist import jsdist_tilde
     from repro_torch.serving import FingerService, ServiceConfig, TopKSpec
 
     if args.batch != 32768:
@@ -824,8 +861,7 @@ def phase_serve(args, torch, out, dev):
     for t in range(TICKS):
         last = t == TICKS - 1
         if last:
-            before_w = fleet.w[sampled].copy()
-            before_a = fleet.active[sampled].copy()
+            before = (fleet.w[sampled].copy(), fleet.active[sampled].copy())
         deltas = fleet.tick(burst_rows=planted if last else ())
         if t == TICKS // 2:
             snap = (svc.states().map_tensors(torch.clone),
@@ -850,12 +886,7 @@ def phase_serve(args, torch, out, dev):
     vals, ids = svc.top_anomalies(4)
     if sorted(ids.tolist()) != planted:
         raise AssertionError(f"top-4 {ids.tolist()} != planted {planted}")
-    worst = 0.0
-    for r, b in enumerate(sampled):
-        g0 = fleet.graph_at(b, before_w[r], before_a[r], dev)
-        g1 = fleet.graph_at(b, fleet.w[b], fleet.active[b], dev)
-        ref = float(jsdist_tilde(g0, g1))
-        worst = max(worst, abs(ref - float(scores[b])))
+    worst = sampled_worst(fleet, sampled, before, scores, dev)
     if worst > 5e-3:
         raise AssertionError(f"incremental vs batch jsdist_tilde differs "
                              f"by {worst:.3e} > 5e-3")
@@ -869,61 +900,310 @@ def phase_serve(args, torch, out, dev):
           f"{np.round(vals, 4).tolist()}; {len(sampled)} sampled scores "
           f"vs batch jsdist_tilde: max |diff| {worst:.3e} (bound 5e-3)")
     out["snap"] = snap
-    traced_tick(torch, svc, fleet.tick())
+    phase_serve_lifecycle(args, torch, out, dev, svc, fleet, planted,
+                          sampled)
+
+
+def state_bits(torch, svc, scores: bool = False) -> dict:
+    """The service's state (and its latest scores), on the host."""
+    torch.cuda.synchronize()
+    bits = {k: v.cpu().numpy() for k, v in svc.states().tensors().items()}
+    if scores:
+        bits["scores"] = svc.scores()
+    return bits
+
+
+def check_same(label, got, *others) -> None:
+    """Raise unless every dict of arrays in ``others`` equals ``got``
+    bit for bit."""
+    import numpy as np
+
+    for other in others:
+        for k, v in got.items():
+            if not np.array_equal(v, other[k], equal_nan=True):
+                raise AssertionError(f"{label}: {k} differs")
+
+
+def ingest_poll_loop(torch, svc, ticks):
+    """ingest → poll over ``ticks`` with no synchronisation inside the
+    loop: the host time of each ingest, CUDA events around each poll,
+    the loop's wall time to a final synchronize, and that time from
+    the start of tick ``max_queue + 1`` on (the double-buffered ring's
+    pinned slots are all allocated by then)."""
+    ingest_ms, marks, starts = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for d in ticks:
+        h = time.perf_counter()
+        starts.append(h)
+        svc.ingest(d)
+        ingest_ms.append((time.perf_counter() - h) * 1e3)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        svc.poll()
+        ev1.record()
+        marks.append((ev0, ev1))
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    steady_s = end - starts[svc.config.max_queue + 1]
+    return (ingest_ms, [a.elapsed_time(b) for a, b in marks], end - t0,
+            steady_s)
+
+
+def phase_serve_lifecycle(args, torch, out, dev, svc, fleet, planted,
+                          sampled):
+    """Phase 3, after its checked ticks: the serving lifecycle on the
+    32768-stream state. Save it; restore it twice, under sync and
+    double-buffered ingestion, and run the same LOOP_T ticks through
+    both (bit-equal; the ingest + poll loop's numbers); two traced
+    double-buffered ticks; then on the double-buffered service warm the
+    2 n_pad layout, repad to it with a tick queued, tick, compact the
+    grown tail away and tick with a generation-0-stamped delta (the
+    grace remap; the sync service, which repads cold, follows every
+    step and stays bit-equal); the sampled scores against batch
+    jsdist_tilde and the planted top-4 at the end; a last save and
+    restore, bit-equal with the live state."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.serving import FingerService
+
+    root = Path(__file__).resolve().parent / "build" / "serve_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    live = state_bits(torch, svc)
+    t0 = time.perf_counter()
+    svc.save(str(root / "a"))
+    save_s = time.perf_counter() - t0
+    cfg = svc.config
     svc.close()
+    svcs, restore_s = {}, {}
+    for mode in ("sync", "double_buffered"):
+        t0 = time.perf_counter()
+        svcs[mode] = FingerService.restore(cfg.with_(ingestion=mode),
+                                           directory=str(root / "a"),
+                                           device=dev)
+        torch.cuda.synchronize()
+        restore_s[mode] = time.perf_counter() - t0
+        check_same(f"{mode} restore", live,
+                   state_bits(torch, svcs[mode]))
+    sy, db = svcs["sync"], svcs["double_buffered"]
+    nbytes = sum(v.nbytes for k, v in live.items() if k != "scores")
+    print(f"  checkpoint of the {args.batch}-stream state "
+          f"({nbytes / 1e6:.1f} MB): save {save_s:.2f} s, restore "
+          f"{restore_s['sync']:.2f} s (sync) and "
+          f"{restore_s['double_buffered']:.2f} s (double_buffered), "
+          "both bit-equal with the saved state")
+    zero_counts()
+    ticks = [fleet.tick() for _ in range(LOOP_T)]
+    loop = {mode: ingest_poll_loop(torch, s, ticks)
+            for mode, s in svcs.items()}
+    tick_bytes = sum(t.numel() * t.element_size()
+                     for t in ticks[0].tensors().values())
+    del ticks
+    check_same("sync vs double_buffered after the loop",
+               state_bits(torch, sy, True), state_bits(torch, db, True))
+    steady = LOOP_T - cfg.max_queue - 1
+    for mode, (ingest_ms, poll_ms, loop_s, steady_s) in loop.items():
+        print(f"  {LOOP_T} ticks, ingestion={mode}: median poll "
+              f"{np.median(poll_ms):.3f} ms (CUDA events), median ingest "
+              f"{np.median(ingest_ms):.3f} ms (host), loop "
+              f"{loop_s * 1e3:.1f} ms, {args.batch * LOOP_T / loop_s:.4g} "
+              f"stream-ticks/s over the loop; its last {steady} ticks "
+              f"{steady_s * 1e3:.1f} ms, "
+              f"{args.batch * steady / steady_s:.4g} stream-ticks/s "
+              f"({tick_bytes / 1e6:.1f} MB a tick; ingest ms a tick: "
+              + " ".join(f"{x:.1f}" for x in ingest_ms) + ")")
+    print(f"  scores and states bit-equal under both ingestions; loop "
+          f"speed-up double_buffered/sync "
+          f"{loop['sync'][2] / loop['double_buffered'][2]:.3f}x, over the "
+          f"last {steady} ticks "
+          f"{loop['sync'][3] / loop['double_buffered'][3]:.3f}x")
+    pair = [fleet.tick(), fleet.tick()]
+    for d in pair:
+        sy.ingest(d)
+        sy.poll()
+    traced_ticks(torch, db, pair)
+    del pair
+    check_same("after the traced ticks", state_bits(torch, sy, True),
+               state_bits(torch, db, True))
+
+    t0 = time.perf_counter()
+    warmed = db.warm_next_layouts([2 * N_PAD])
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    warm_plans = {id(p) for p, _ in db.plan_cache._plans.values()}
+    if warmed != [2 * N_PAD] or not warm_plans:
+        raise AssertionError(f"warm_next_layouts warmed {warmed}")
+    d1 = fleet.tick()
+    swap = {}
+    for mode, s in svcs.items():
+        s.ingest(d1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.repad(2 * N_PAD)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s.poll()
+        torch.cuda.synchronize()
+        swap[mode] = ((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3)
+    del d1
+    if id(db.plan) not in warm_plans or id(sy.plan) in warm_plans:
+        raise AssertionError("repad did not install the warmed plan on "
+                             "the double-buffered service only")
+    d2 = dataclasses.replace(fleet.tick(), n_nodes=2 * N_PAD)
+    for s in svcs.values():
+        s.ingest(d2)
+        s.poll()
+    del d2
+    compact_ms, reports = {}, {}
+    for mode, s in svcs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reports[mode] = s.compact()
+        torch.cuda.synchronize()
+        compact_ms[mode] = (time.perf_counter() - t0) * 1e3
+    rep = reports["double_buffered"]
+    if rep.reclaimed < N_PAD or db.layout.generation != 2 \
+            or not np.array_equal(rep.index_map,
+                                  reports["sync"].index_map):
+        raise AssertionError(f"compact reclaimed {rep.reclaimed} slots to "
+                             f"generation {db.layout.generation}")
+    before = (fleet.w[sampled].copy(), fleet.active[sampled].copy())
+    d3 = dataclasses.replace(fleet.tick(burst_rows=planted),
+                             layout_generation=0)
+    for s in svcs.values():
+        s.ingest(d3)
+        s.poll()
+    del d3
+    launches = read_counts(out)["stream_tick"]
+    want = 2 * (LOOP_T + 2 + 3) + 1
+    if launches != want:
+        raise AssertionError(f"stream_tick launched {launches} times in the "
+                             f"lifecycle's {want - 1} ticks and one warm")
+    live = state_bits(torch, db, True)
+    check_same("sync vs double_buffered after the migrations",
+               live, state_bits(torch, sy, True))
+    scores = live["scores"]
+    vals, ids = db.top_anomalies(4)
+    worst = sampled_worst(fleet, sampled, before, scores, dev)
+    if sorted(ids.tolist()) != planted or worst > 5e-3 \
+            or not np.isfinite(scores).all():
+        raise AssertionError(f"after the migrations: top-4 {ids.tolist()} "
+                             f"(planted {planted}), sampled scores differ "
+                             f"from batch jsdist_tilde by {worst:.3e}")
+    t0 = time.perf_counter()
+    db.save(str(root / "b"))
+    save2_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = FingerService.restore(db.config, directory=str(root / "b"),
+                                 device=dev)
+    torch.cuda.synchronize()
+    restore2_s = time.perf_counter() - t0
+    got = state_bits(torch, back)
+    live.pop("scores")
+    check_same("the last restore", live, got)
+    if back.layout != db.layout or back.step != db.step:
+        raise AssertionError(f"restored layout {back.layout} step "
+                             f"{back.step} != {db.layout} {db.step}")
+    print(f"  migrations: warm_next_layouts([{2 * N_PAD}]) {warm_ms:.1f} ms; "
+          f"repad {N_PAD}->{2 * N_PAD} with a tick queued, then its poll: "
+          f"cold (sync service) {swap['sync'][0]:.1f} ms + poll = "
+          f"{swap['sync'][1]:.1f} ms, warm (double_buffered) "
+          f"{swap['double_buffered'][0]:.1f} ms + poll = "
+          f"{swap['double_buffered'][1]:.1f} ms; compact() reclaimed "
+          f"{rep.reclaimed} slots to n_pad={rep.new_n_pad} in "
+          f"{compact_ms['double_buffered']:.1f} ms "
+          f"({compact_ms['sync']:.1f} ms on the sync service); a "
+          "generation-0-stamped tick remapped at ingest")
+    print(f"  after the chain: top-4 {ids.tolist()} == planted {planted}, "
+          f"{len(sampled)} sampled scores vs batch jsdist_tilde max |diff| "
+          f"{worst:.3e} (bound 5e-3); both services bit-equal; "
+          f"stream_tick launches {launches} ({want - 1} ticks + 1 warm)")
+    print(f"  last checkpoint at generation {db.layout.generation}: save "
+          f"{save2_s:.2f} s, restore {restore2_s:.2f} s, bit-equal with "
+          "the live state")
+    for s in (sy, db, back):
+        s.close()
+    shutil.rmtree(root, ignore_errors=True)
 
 
-def traced_tick(torch, svc, deltas):
-    """One more ingest → poll tick under `torch.profiler`: the device's
-    busy time (kernels, copies, fills; overlaps counted once) against
-    the tick's span on the host, from the exported trace."""
+def traced_ticks(torch, svc, deltas):
+    """Consecutive double-buffered ingest → poll ticks under
+    `torch.profiler`: the side-stream copies' time, how much of it
+    overlaps the host's work (the span of the ingest and poll calls) and
+    the kernels, and the device's busy and idle share over the span to
+    the final synchronize."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
-        with record_function("chip_smoke_tick"):
-            svc.ingest(deltas)
-            svc.poll()
+        with record_function("chip_smoke_ticks"):
+            with record_function("chip_smoke_host"):
+                for d in deltas:
+                    svc.ingest(d)
+                    svc.poll()
             torch.cuda.synchronize()
     path = Path(__file__).resolve().parent / "build" / "tick_trace.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
-    span = [e for e in events if e.get("name") == "chip_smoke_tick"
-            and e.get("ph") == "X"]
+
+    def span_of(name):
+        hit = [e for e in events if e.get("name") == name
+               and e.get("ph") == "X"]
+        return (float(hit[0]["ts"]),
+                float(hit[0]["ts"]) + float(hit[0]["dur"])) if hit else None
+
+    span, host = span_of("chip_smoke_ticks"), span_of("chip_smoke_host")
     dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
                   e["cat"], e["name"]) for e in events
                  if e.get("ph") == "X" and e.get("cat") in
                  ("kernel", "gpu_memcpy", "gpu_memset"))
-    if not span or not dev:
-        print("  traced tick: the trace holds no device events; idle "
+    if not span or not host or not dev:
+        print("  traced ticks: the trace holds no device events; idle "
               "share not measured")
         return
-    t0 = float(span[0]["ts"])
-    t1 = t0 + float(span[0]["dur"])
+    t0, t1 = span
 
-    def covered(intervals):
-        """Microseconds of [t0, t1] covered by sorted intervals."""
-        total, end = 0.0, t0
-        for a, b in intervals:
-            a, b = max(a, end), min(b, t1)
-            if b > a:
-                total += b - a
-                end = b
-        return total
+    def union(intervals):
+        out = []
+        for a, b in sorted(intervals):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
 
-    busy = covered([(a, b) for a, b, _, _ in dev])
-    kern = covered([(a, b) for a, b, cat, _ in dev if cat == "kernel"])
+    def overlap(xs, ys):
+        """Microseconds of the intervals xs that lie inside union(ys)."""
+        ys = union(ys)
+        return sum(max(0.0, min(b, d) - max(a, c))
+                   for a, b in xs for c, d in ys)
+
+    within = [(max(a, t0), min(b, t1)) for a, b, _, _ in dev]
+    busy = overlap([(t0, t1)], within)
+    kernels = [(a, b) for a, b, cat, _ in dev if cat == "kernel"]
+    copies = [(a, b) for a, b, cat, _ in dev if cat == "gpu_memcpy"]
+    copy_us = sum(b - a for a, b in copies)
     by_cat = {}
     for a, b, cat, name in dev:
         key = "stream_tick kernel" if "stream_tick" in name else cat
         by_cat[key] = by_cat.get(key, 0.0) + (b - a) / 1e3
     parts = ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(by_cat.items()))
-    print(f"  traced tick (profiler on): span {(t1 - t0) / 1e3:.3f} ms; "
-          f"device busy {busy / 1e3:.3f} ms ({parts}); idle share "
+    share = overlap(copies, [host]) / copy_us if copy_us else 0.0
+    print(f"  traced {len(deltas)} double-buffered ticks (profiler on): "
+          f"span {(t1 - t0) / 1e3:.3f} ms, host ingest+poll "
+          f"{(host[1] - host[0]) / 1e3:.3f} ms; device busy "
+          f"{busy / 1e3:.3f} ms ({parts}); idle share "
           f"{1 - busy / (t1 - t0):.4f} with copies counted as busy, "
-          f"{1 - kern / (t1 - t0):.4f} counting kernels only")
+          f"{1 - overlap([(t0, t1)], kernels) / (t1 - t0):.4f} counting "
+          "kernels only")
+    print(f"  side-stream copies {len(copies)}, {copy_us / 1e3:.3f} ms: "
+          f"{overlap(copies, [host]) / 1e3:.3f} ms ({share:.1%}) inside "
+          f"the host's ingest+poll span, "
+          f"{overlap(copies, kernels) / 1e3:.3f} ms overlapping kernels")
 
 
 def phase_single(args, torch, out, dev):
@@ -991,7 +1271,7 @@ def phase_sparse(args, torch, out, dev):
     fleet = SparseFleet(SP_BATCH, args.seed + 3)
     t1 = time.perf_counter()
     cfg = ServiceConfig(method="sparse_tick", placement="local",
-                        ingestion="sync", exact_smax=True,
+                        ingestion="double_buffered", exact_smax=True,
                         batch_size=SP_BATCH, n_pad=N_VIRTUAL,
                         n_slots=SP_SLOTS, m_pad=SP_M_PAD, k_pad=K_PAD,
                         j_pad=J_PAD, topk=TopKSpec(k=4))
@@ -1035,8 +1315,9 @@ def phase_sparse(args, torch, out, dev):
         return tick
 
     def mark(plan_tick):
-        """Record when the plan's tick starts: after the ingestor's copy
-        of the delta to the device, before the kernel's launch."""
+        """Record when the plan's tick starts: after the ingestor's
+        hand-over of the delta (the current stream's wait on its
+        side-stream copy), before the kernel's launch."""
         def tick(states, deltas):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
@@ -1108,17 +1389,17 @@ def phase_sparse(args, torch, out, dev):
     med = float(np.median(tick_ms))
     print(f"  {TICKS} ticks (grow_capacity to n_slots={svc.capacity.n_slots}"
           f" m_pad={svc.capacity.m_pad} queued at tick {GROW_T}, repad to "
-          f"n_pad={svc.config.n_pad} at tick {REPAD_T}): median tick "
-          f"{med:.3f} ms (CUDA events around poll, host-to-device copy "
-          f"included), median host ingest (SlotMap translation and "
-          f"stacking) {np.median(ingest_ms):.1f} ms, "
+          f"n_pad={svc.config.n_pad} at tick {REPAD_T}; double-buffered): "
+          f"median tick {med:.3f} ms (CUDA events around poll), median "
+          f"host ingest (SlotMap translation, stacking, the pinned copy "
+          f"and the side-stream copy's start) {np.median(ingest_ms):.1f} ms, "
           f"{SP_BATCH / med * 1e3:.4g} stream-ticks/s; sparse_tick "
           f"launches {launches}")
     print(f"  tick latency min {min(tick_ms):.3f} / max {max(tick_ms):.3f} "
           f"ms; median host time of poll {np.median(poll_ms):.3f} ms; "
           f"ingest min {min(ingest_ms):.1f} / max {max(ingest_ms):.1f} ms")
     med_split = np.median(np.array(split), axis=0)
-    print(f"  poll split at the plan's tick (medians): ingestor copy "
+    print(f"  poll split at the plan's tick (medians): ingestor hand-over "
           f"{med_split[0]:.3f} ms (host {med_split[2]:.3f} ms), launch and "
           f"kernel {med_split[1]:.3f} ms; every tick's latency: "
           + " ".join(f"{x:.2f}" for x in tick_ms))
@@ -1129,19 +1410,67 @@ def phase_sparse(args, torch, out, dev):
           + f" (bound 5e-3); {len(sampled)} sampled edge stores equal "
           "the mirror at their SlotMap slots")
     out["sparse_snap"] = captured["snap"]
-    # The poll's parts: the blocking pageable copy of the stacked delta
-    # (what SyncIngestor.get does) timed alone on a host copy of the
-    # delta of tick TICKS // 2; the kernel is timed after this phase.
+    # For scale: the blocking pageable copy of the stacked delta that
+    # the sync ingestor would pay in the poll, timed alone on a host
+    # copy of the delta of tick TICKS // 2; the kernel is timed after
+    # this phase.
     host = captured["snap"][1].map_tensors(lambda x: x.cpu())
     copy_ms = cuda_ms(lambda: host.map_tensors(lambda x: x.to(dev)), 10)
     nbytes = sum(x.numel() * x.element_size()
                  for x in host.tensors().values())
-    print(f"  poll's parts: host-to-device copy of the {nbytes / 1e6:.1f} MB "
-          f"stacked slot-space delta {copy_ms:.3f} ms; Python garbage "
-          f"collection paused {gc_s['poll'] * 1e3:.1f} ms inside the 20 "
-          f"polls and {gc_s['ingest'] * 1e3:.1f} ms inside the 20 ingests "
-          f"(which took {sum(ingest_ms):.1f} ms)")
+    print(f"  a pageable host-to-device copy of the {nbytes / 1e6:.1f} MB "
+          f"stacked slot-space delta (the sync ingestor's) {copy_ms:.3f} "
+          f"ms; Python garbage collection paused "
+          f"{gc_s['poll'] * 1e3:.1f} ms inside the 20 polls and "
+          f"{gc_s['ingest'] * 1e3:.1f} ms inside the 20 ingests (which took "
+          f"{sum(ingest_ms):.1f} ms)")
+    sparse_save_restore(torch, dev, svc, fleet, n_virtual)
     svc.close()
+
+
+def sparse_save_restore(torch, dev, svc, fleet, n_virtual):
+    """Phase 5's end: save the sparse service and restore it (the
+    `SlotMap` JSON equal, the state bit-equal), then one more tick on
+    both services, bit-equal (launched outside the path's count)."""
+    import shutil
+
+    from repro_torch.serving import FingerService
+
+    root = Path(__file__).resolve().parent / "build" / "sparse_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    svc.save(str(root))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = FingerService.restore(svc.config, directory=str(root),
+                                 device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    # to_json is a function of these fields; comparing them costs far
+    # less than 4096 to_json calls a side (about 7 ms each)
+    fields = ("layout", "n_virtual", "stream", "node_slot", "edge_slot",
+              "_free_nodes", "_free_edges", "_node_edges")
+    bad = [i for i, (a, b) in enumerate(zip(svc.slot_maps, back.slot_maps))
+           if any(getattr(a, f) != getattr(b, f) for f in fields)]
+    bad += [i for i in range(0, len(back.slot_maps), 64)
+            if back.slot_maps[i].to_json() != svc.slot_maps[i].to_json()]
+    if bad or len(back.slot_maps) != len(svc.slot_maps):
+        raise AssertionError(f"restored SlotMaps differ in streams {bad[:8]}")
+    check_same("sparse restore", state_bits(torch, svc),
+               state_bits(torch, back))
+    deltas = fleet.virtual_deltas(n_virtual)
+    for s in (svc, back):
+        s.ingest(deltas)
+        s.poll()
+    check_same("the tick after the sparse restore",
+               state_bits(torch, svc, True), state_bits(torch, back, True))
+    print(f"  checkpoint of the sparse service ({len(back.slot_maps)} "
+          f"SlotMaps in the manifest): save {save_s:.2f} s, restore "
+          f"{restore_s:.2f} s; every SlotMap equal field by field (the JSON "
+          "of every 64th compared), state bit-equal, and one more tick "
+          "bit-equal on both services")
+    back.close()
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def sparse_bytes(before, after, deltas) -> tuple:
@@ -2010,46 +2339,54 @@ def main() -> int:
 
     dev = torch.device("cuda")
     out = {}
-    phase = "build"
+    phase, t_phase = "build", time.perf_counter()
+
+    def start(name: str, title: str) -> None:
+        """Close the running phase's clock and open the next."""
+        nonlocal phase, t_phase
+        now = time.perf_counter()
+        print(f"  ({phase} took {now - t_phase:.1f} s)")
+        phase, t_phase = name, now
+        if title:
+            print(title)
+
     try:
         dispatch.library()
         print(f"phase 1 build: {dispatch.build_seconds():.1f} s into "
               f"{dispatch.build_dir()}")
-        phase = "kernels"
-        print("phase 2 kernels vs plain versions:")
+        start("kernels", "phase 2 kernels vs plain versions:")
         phase_kernels(args, torch, out, dev)
-        phase = "serve"
-        print("phase 3 main path (FingerService, fused_tick):")
+        start("serve", "phase 3 main path (FingerService, fused_tick; "
+                       "then its checkpoint, both ingestions and the "
+                       "migrations):")
         phase_serve(args, torch, out, dev)
-        phase = "single"
-        print("phase 4 single-stream path (jsdist_incremental, fused_tick):")
+        start("single", "phase 4 single-stream path (jsdist_incremental, "
+                        "fused_tick):")
         phase_single(args, torch, out, dev)
-        phase = "timing"
-        print("kernel times at the main path's shapes and inputs:")
+        start("timing", "kernel times at the main path's shapes and "
+                        "inputs:")
         rows = kernel_rows(torch, out)
-        phase = "sparse"
-        print("phase 5 sparse path (FingerService, sparse_tick):")
+        start("sparse", "phase 5 sparse path (FingerService, sparse_tick, "
+                        "double-buffered):")
         phase_sparse(args, torch, out, dev)
-        phase = "sparse timing"
-        print("sparse_tick times at the sparse path's shapes and inputs:")
+        start("sparse timing", "sparse_tick times at the sparse path's "
+                               "shapes and inputs:")
         rows += sparse_rows(torch, out)
         out.pop("sparse_snap")
         out.pop("sparse_stacked")
-        phase = "train"
-        print("phase 6 train path (launch.train.run, FINGER telemetry):")
+        start("train", "phase 6 train path (launch.train.run, FINGER "
+                       "telemetry):")
         phase_train(args, torch, out, dev)
-        phase = "train timing"
-        print("vnge_q and entropy_probe times at the train path's inputs:")
+        start("train timing", "vnge_q and entropy_probe times at the train "
+                              "path's inputs:")
         rows += train_rows(torch, out, dev)
-        phase = "offline"
-        t_off = time.perf_counter()
-        print("phase 7 offline path (FINGER-H_hat, Algorithm 1, exact VNGE; "
-              "bsr_matvec):")
+        start("offline", "phase 7 offline path (FINGER-H_hat, Algorithm 1, "
+                         "exact VNGE; bsr_matvec):")
         phase_offline(args, torch, out, dev)
-        phase = "offline timing"
-        print("bsr_matvec times at the offline path's inputs:")
+        start("offline timing", "bsr_matvec times at the offline path's "
+                                "inputs:")
         rows += offline_rows(torch, out, dev)
-        print(f"  phase 7 took {time.perf_counter() - t_off:.1f} s")
+        start("done", "")
     except Exception:  # report the phase, then fail the run
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED")

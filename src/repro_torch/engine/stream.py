@@ -22,10 +22,17 @@ per-stream `SlotMap`s that translate its virtual deltas.
 The engine owns its stacked state: `tick` updates it in place (the
 counterpart of JAX's donation), so rebind to the returned state and do
 not reuse the one passed in.
+
+Restartable serving: `save` / `restore` persist the stacked state
+through `train.checkpoint` in the reference's on-disk format (the
+arrays named as the JAX pytree flattening names a stacked state's
+leaves, ``0`` … ``5``, and the reference's manifest keys), so a
+checkpoint written by either package restores in the other, and a
+`FingerService` checkpoint restores into a bare engine.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -39,8 +46,70 @@ from repro_torch.graphs.types import GraphDelta
 from repro_torch.kernels.dispatch import Device, resolve_device
 from repro_torch.kernels.sparse_tick.ops import sparse_tick_fused
 from repro_torch.kernels.stream_tick.ops import stream_tick_fused
+from repro_torch.train.checkpoint import (latest_checkpoint, load_manifest,
+                                          restore_checkpoint,
+                                          save_checkpoint)
 
 METHODS = ("dense", "compact", "fused_tick", "sparse_tick")
+CKPT_KIND = "stream_engine_state"
+
+State = Union[FingerState, SparseStreamState]
+
+
+def state_tree(states: State) -> dict:
+    """A stacked state's tensors by the names JAX's pytree flattening
+    gives its leaves: the field's position, ``"0"`` (q) to ``"4"``
+    (node_mask, when present) and ``"5"`` (edge_weights, sparse)."""
+    return {str(i): t for i, t in enumerate(states.tensors().values())}
+
+
+def restore_stacked_state(ckpt_dir: str, *, exact_smax: bool,
+                          method: str) -> Tuple[State, int, dict]:
+    """Latest checkpoint → (stacked state on the CPU, step, metadata).
+
+    The manifest's layout fields rebuild the state without a template,
+    and the saved engine config is checked against the restoring one.
+    Shared by `StreamEngine.restore` and `FingerService.restore`.
+    """
+    path = latest_checkpoint(ckpt_dir)
+    if path is None:
+        raise FileNotFoundError(
+            f"restore: no checkpoint under {ckpt_dir!r}")
+    manifest = load_manifest(path)
+    meta = manifest["metadata"]
+    if meta.get("kind") != CKPT_KIND:
+        raise ValueError(
+            f"restore: {path!r} is not a FINGER serving checkpoint "
+            f"(kind={meta.get('kind')!r})")
+    for key, want in (("exact_smax", exact_smax), ("method", method)):
+        if key in meta and meta[key] != want:
+            raise ValueError(
+                f"restore: checkpoint was saved with {key}="
+                f"{meta[key]!r} but this engine uses {want!r}; "
+                "resuming across configs breaks the identical-"
+                "scores guarantee — construct the engine with the "
+                "saved config")
+    b, n_pad = int(meta["b"]), int(meta["n_pad"])
+    sp = meta.get("sparse")
+    if sp is not None:
+        layout = SparseLayout(int(sp["n_slots"]), int(sp["m_pad"]),
+                              generation=int(sp["generation"]))
+        shapes = [(b,)] * 3 + [(b, layout.n_slots)] * 2 \
+            + [(b, layout.m_pad)]
+    else:
+        has_mask = bool(meta.get("has_node_mask"))
+        # older manifests predate migrations: generation 0
+        layout = NodeLayout(n_pad, generation=int(
+            meta.get("layout_generation", 0))) if has_mask else None
+        shapes = [(b,)] * 3 + [(b, n_pad)] * (2 if has_mask else 1)
+    template = {str(i): torch.empty(s) for i, s in enumerate(shapes)}
+    tree, manifest = restore_checkpoint(path, template, manifest=manifest)
+    fields = [tree[str(i)] for i in range(len(shapes))]
+    if sp is not None:
+        states = SparseStreamState(*fields, layout=layout)
+    else:
+        states = FingerState(*fields, layout=layout)
+    return states, int(manifest["step"]), meta
 
 
 def _check_consistent(label: str, kind: str, values) -> None:
@@ -181,6 +250,44 @@ class StreamEngine:
         states, maps = sparse_states_from_graphs(graphs, layout,
                                                  n_virtual=int(n_virtual))
         return states.to(device), maps
+
+    # -- persistence -----------------------------------------------------
+    def save(self, ckpt_dir: str, states: State, step: int = 0,
+             metadata: Optional[dict] = None, prune_policy=3) -> str:
+        """Persist the stacked state (atomic write, ``prune_policy`` as
+        in `train.checkpoint`). Waits for the device's streams first:
+        the ticks update the state in place."""
+        if states.q.device.type == "cuda":
+            torch.cuda.synchronize(states.q.device)
+        # reserved keys win over the caller's metadata
+        meta = dict(metadata or {})
+        meta.update({
+            "kind": CKPT_KIND,
+            "b": int(states.q.shape[0]),
+            "n_pad": int(states.strengths.shape[-1]),
+            "has_node_mask": states.node_mask is not None,
+            "layout_generation": (states.layout.generation
+                                  if states.layout is not None else 0),
+            "exact_smax": self.exact_smax,
+            "method": self.method,
+        })
+        if isinstance(states, SparseStreamState):
+            # n_pad above is the slot width; the SlotMaps ride in the
+            # caller's metadata ("slot_maps", from FingerService.save)
+            meta["sparse"] = {
+                "n_slots": int(states.layout.n_slots),
+                "m_pad": int(states.layout.m_pad),
+                "generation": int(states.layout.generation),
+            }
+        return save_checkpoint(ckpt_dir, step, state_tree(states),
+                               metadata=meta, prune_policy=prune_policy)
+
+    def restore(self, ckpt_dir: str) -> Tuple[State, int]:
+        """The stacked state of the latest checkpoint, on this engine's
+        device, and its step."""
+        states, step, _ = restore_stacked_state(
+            ckpt_dir, exact_smax=self.exact_smax, method=self.method)
+        return states.to(self.device), step
 
     # -- serving ---------------------------------------------------------
     def tick(self, states: FingerState, deltas: GraphDelta

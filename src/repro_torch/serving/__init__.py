@@ -1,30 +1,39 @@
 """repro_torch.serving: declarative FINGER stream serving on one device.
 
 `ServiceConfig` states the serving decisions once, `FingerService.open`
-builds its plan and stacked state, and `ingest`/`poll`/`scores`/
-`top_anomalies`/`close` run the lifecycle, on dense or sparse
-(``method="sparse_tick"``) streams; `grow_capacity` and the virtual
-`repad` migrate a sparse service. Only the local placement with
-synchronous ingestion is ported so far.
+(or `restore`) builds its plan and stacked state, and `ingest`/`poll`/
+`scores`/`top_anomalies`/`save`/`close` run the lifecycle, on dense or
+sparse (``method="sparse_tick"``) streams, with double-buffered or
+synchronous ingestion. `repad`, `compact` and `grow_capacity` migrate
+the layout while serving, through the warm `PlanCache` of
+`warm_next_layouts`. Only the local placement is ported.
 """
 from repro_torch.serving.config import (
     CheckpointPolicy,
+    PlanCachePolicy,
     ServiceConfig,
     ServiceConfigError,
     TopKSpec,
 )
-from repro_torch.serving.ingest import IngestError
-from repro_torch.serving.migrate import LayoutMigrationError
-from repro_torch.serving.plans import ExecutionPlan, LocalPlan, build_plan
+from repro_torch.serving.ingest import GraceLapseError, IngestError
+from repro_torch.serving.migrate import CompactionReport, LayoutMigrationError
+from repro_torch.serving.plans import (
+    ExecutionPlan,
+    LocalPlan,
+    PlanCache,
+    build_plan,
+)
 from repro_torch.serving.service import (
     FingerService,
     ServiceLifecycleError,
     TickReport,
+    WarmupHandle,
 )
 
 __all__ = [
-    "CheckpointPolicy", "ExecutionPlan", "FingerService", "IngestError",
-    "LayoutMigrationError", "LocalPlan", "ServiceConfig",
-    "ServiceConfigError",
-    "ServiceLifecycleError", "TickReport", "TopKSpec", "build_plan",
+    "CheckpointPolicy", "CompactionReport", "ExecutionPlan",
+    "FingerService", "GraceLapseError", "IngestError",
+    "LayoutMigrationError", "LocalPlan", "PlanCache", "PlanCachePolicy",
+    "ServiceConfig", "ServiceConfigError", "ServiceLifecycleError",
+    "TickReport", "TopKSpec", "WarmupHandle", "build_plan",
 ]

@@ -6,13 +6,13 @@ rejects by name, as "not yet ported", the options whose code the port
 does not have yet:
 
 - ``placement`` other than ``"local"`` (the sharded and multipod plans);
-- ``ingestion="double_buffered"``;
-- a checkpoint directory (save/restore);
-- ``compilation_cache_dir`` (a JAX compilation cache has no counterpart
-  until the port captures CUDA graphs).
+- ``compilation_cache_dir``: the reference points JAX's persistent
+  compilation cache there, so that a restarted replica reads its
+  compiled ticks from disk. The port compiles nothing a layout at a
+  time (its kernels are built once per source), so there is no such
+  cache to point anywhere.
 
-``ingestion`` defaults to ``"sync"`` here, the one ingestion the port
-has; the reference defaults to ``"double_buffered"``.
+``ingestion`` defaults to ``"double_buffered"``, as in the reference.
 """
 from __future__ import annotations
 
@@ -83,9 +83,31 @@ class CheckpointPolicy:
                 "CheckpointPolicy.every_ticks set but directory is None; "
                 "periodic saves need somewhere to go")
         _validate_prune_policy(self.prune)
-        if self.directory is not None:
-            raise _not_yet_ported("CheckpointPolicy.directory "
-                                  "(checkpoint save/restore)")
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanCachePolicy:
+    """Knobs of the warm `serving.plans.PlanCache`: plans made ready for
+    predicted next layouts, so that `repad`/`compact` swap without a
+    cold first tick.
+
+    ``enabled``       : migrations consult the cache at all.
+    ``growth_factor`` : the predicted next grow target is
+        ``round(n_pad * growth_factor)``.
+    ``warm_compact``  : also warm the pending compaction target (the
+        current live-slot count).
+    """
+
+    enabled: bool = True
+    growth_factor: float = 2.0
+    warm_compact: bool = True
+
+    def validate(self) -> None:
+        if self.growth_factor <= 1.0:
+            raise ServiceConfigError(
+                f"PlanCachePolicy.growth_factor must exceed 1.0 "
+                f"(a grow prediction must grow), got "
+                f"{self.growth_factor}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,12 +145,20 @@ class ServiceConfig:
         for the dense methods.
     exact_smax : recompute s_max exactly after deletions.
     placement : ``"local"`` (one device).
-    ingestion : ``"sync"`` — deltas stay on the host until the tick
-        that consumes them, and the copy to the device blocks.
+    ingestion : ``"double_buffered"`` (default) — `ingest` starts the
+        delta's copy to the device on a side stream, so it overlaps the
+        tick in flight — or ``"sync"`` — deltas stay on the host until
+        the tick that consumes them, and the copy to the device blocks
+        (the baseline of an overlap measurement).
     max_queue : ingestion queue depth before `ingest` raises.
-    checkpoint : CheckpointPolicy (no directory yet).
+    checkpoint : CheckpointPolicy (directory, prune policy, cadence).
     topk : TopKSpec for `top_anomalies` queries.
-    compilation_cache_dir : must be None.
+    plan_cache : PlanCachePolicy for `FingerService.warm_next_layouts`.
+    grace_generations : how many past migration generations keep an
+        old→new remap for deltas stamped with an older layout; older
+        ones raise `serving.ingest.GraceLapseError`. ``None`` keeps
+        every journaled generation.
+    compilation_cache_dir : must be None (see the module docstring).
     """
 
     batch_size: int
@@ -140,10 +170,12 @@ class ServiceConfig:
     method: str = "dense"
     exact_smax: bool = False
     placement: str = "local"
-    ingestion: str = "sync"
+    ingestion: str = "double_buffered"
     max_queue: int = 2
     checkpoint: CheckpointPolicy = CheckpointPolicy()
     topk: TopKSpec = TopKSpec()
+    plan_cache: PlanCachePolicy = PlanCachePolicy()
+    grace_generations: Optional[int] = 3
     compilation_cache_dir: Optional[str] = None
 
     def validate(self, num_shards: Optional[int] = None) -> None:
@@ -186,11 +218,14 @@ class ServiceConfig:
         if self.ingestion not in INGESTIONS:
             raise ServiceConfigError(
                 f"ingestion {self.ingestion!r} not in {INGESTIONS}")
-        if self.ingestion != "sync":
-            raise _not_yet_ported(f"ingestion={self.ingestion!r}")
         if self.max_queue <= 0:
             raise ServiceConfigError(
                 f"max_queue must be positive, got {self.max_queue}")
+        if self.grace_generations is not None \
+                and self.grace_generations < 0:
+            raise ServiceConfigError(
+                f"grace_generations must be >= 0 (or None for "
+                f"unbounded retention), got {self.grace_generations}")
         if self.compilation_cache_dir is not None:
             if not str(self.compilation_cache_dir).strip():
                 raise ServiceConfigError(
@@ -199,6 +234,7 @@ class ServiceConfig:
             raise _not_yet_ported("compilation_cache_dir")
         self.checkpoint.validate()
         self.topk.validate()
+        self.plan_cache.validate()
         if num_shards is not None:
             if self.batch_size % num_shards != 0:
                 raise ServiceConfigError(
@@ -211,3 +247,8 @@ class ServiceConfig:
                     f"topk.k={self.topk.k} exceeds the per-shard stream "
                     f"count {per_shard} (batch_size={self.batch_size} "
                     f"over {num_shards} shards)")
+
+    def with_(self, **updates) -> "ServiceConfig":
+        """`dataclasses.replace` spelled as a method (the migrations use
+        it)."""
+        return dataclasses.replace(self, **updates)

@@ -1,32 +1,74 @@
 """Host→device delta ingestion for the port's FingerService.
 
-The port's counterpart of the synchronous half of `repro.serving.ingest`:
-`SyncIngestor` keeps each stacked delta on the host until the tick that
-consumes it, then copies it to the device and blocks until the copy
-lands, so the transfer sits on the tick's critical path. Every delta is
-checked against the service layout up front with a named
-`IngestError` — a dense delta against ``n_pad``, a slot-space delta
-(``method="sparse_tick"``) against ``n_slots`` — and the queue is
-bounded by ``config.max_queue``.
+The port's counterpart of `repro.serving.ingest`:
 
-Not yet ported: the double-buffered ingestor and the old→new remap
-tables that follow layout migrations.
+- ``SyncIngestor``: the baseline. Each stacked delta stays on the host
+  until the tick that consumes it; `get` copies it to the device and
+  blocks until the copy lands, so the transfer sits on the tick's
+  critical path.
+- ``DoubleBufferedIngestor``: `put` starts the copy at once. On CUDA it
+  copies the host delta into one slot of a ring of pinned host buffers
+  that the ingestor owns (``max_queue + 1`` slots, one flat buffer a
+  slot), starts one asynchronous copy of the slot to a fresh device
+  buffer on a side `torch.cuda.Stream`, and records an event. `get`
+  makes the current stream wait on that event (no host sync) and
+  records the buffer's use by the current stream with the caching
+  allocator, so its block is not handed out again while the tick reads
+  it. A slot is written again only after its previous copy has landed,
+  and the caller's own tensors never feed an asynchronous copy, so the
+  caller may overwrite them as soon as `ingest` returns. On the CPU
+  both ingestors only queue host tensors.
+
+Both check every delta against the service layout up front with a
+named `IngestError` — a dense delta against ``n_pad``, a slot-space
+delta (``method="sparse_tick"``) against ``n_slots`` — and bound the
+queue at ``config.max_queue``.
+
+Layout migrations: after a `FingerService.compact` (or any migration),
+producers may still send deltas addressed in an older layout for a
+grace period. The ingestor holds two old→new index-map tables and
+renumbers such deltas on ``put`` (`serving.migrate.remap_delta`)
+before validation; a delta that addresses a dropped slot raises:
+
+- **generation-keyed** (exact): a delta stamped with its layout's
+  generation (``GraphDelta.from_arrays(..., layout=...)``) goes through
+  exactly the journaled migrations since that generation. A generation
+  the retention policy (``grace_generations``) pruned raises
+  `GraceLapseError`; an unknown one raises `IngestError`.
+- **size-keyed** (best effort): a raw delta declares only its layout's
+  size; the newest migration from that size wins, and grows reject
+  old-size raw deltas.
+
+The stamp is consumed here: queued deltas carry
+``layout_generation=None``. ``take_all`` hands the queue back to a
+migration, which re-lays it out and puts it back; ``pop`` hands the
+oldest tick over as held (on the device under double buffering).
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.graphs.types import GraphDelta
 from repro_torch.serving.config import ServiceConfig
 
+_ALIGN = 256  # bytes between the fields of a staging buffer
+
 
 class IngestError(ValueError):
     """A stacked delta does not fit the service's layout (or the
     ingestion queue overflowed)."""
+
+
+class GraceLapseError(IngestError):
+    """A generation-stamped delta addresses a layout generation whose
+    grace window has lapsed: ``ServiceConfig.grace_generations`` has
+    pruned that generation's old→new remap. The producer must rebuild
+    its deltas against the current layout (`FingerService.layout`)."""
 
 
 def validate_stacked_delta(config: ServiceConfig,
@@ -78,7 +120,9 @@ def validate_stacked_delta(config: ServiceConfig,
     elif deltas.n_nodes != config.n_pad:
         raise IngestError(
             f"stacked delta n_pad {deltas.n_nodes} != config.n_pad="
-            f"{config.n_pad}")
+            f"{config.n_pad}; after a repad, rebuild deltas with the "
+            "new n_pad (deltas in a pre-compact() layout are remapped "
+            "automatically while its index map is installed)")
     for name, t in deltas.tensors().items():
         if tuple(t.shape[:1]) != (b,):
             raise IngestError(f"delta field {name} has shape "
@@ -101,43 +145,115 @@ class SyncIngestor:
     blocks until the copy lands."""
 
     def __init__(self, config: ServiceConfig, device: torch.device,
+                 remaps: Optional[Dict[int, np.ndarray]] = None,
+                 remaps_by_gen: Optional[Dict[int, np.ndarray]] = None,
                  generation: int = 0):
         self.config = config
         self.device = device
+        # old n_pad -> old→current index map (installed by compact()).
+        self.remaps: Dict[int, np.ndarray] = dict(remaps or {})
+        # old layout generation -> old→current index map.
+        self.remaps_by_gen: Dict[int, np.ndarray] = \
+            dict(remaps_by_gen or {})
         self.generation = int(generation)
+        # (delta, copy event or None, device buffer or None), oldest
+        # first
         self._queue: deque = deque()
 
     def __len__(self) -> int:
         return len(self._queue)
 
-    def put(self, deltas: GraphDelta) -> None:
+    def _maybe_remap(self, deltas: GraphDelta) -> GraphDelta:
+        """Renumber a delta still addressed in a pre-migration layout
+        (steady-state deltas pass through); consume the generation
+        stamp."""
+        from repro_torch.serving.migrate import remap_delta
+
         gen = deltas.layout_generation
         if gen is not None:
-            if gen != self.generation:
+            if gen == self.generation:
+                if deltas.n_nodes != self.config.n_pad:
+                    raise IngestError(
+                        f"delta declares layout generation {gen} (the "
+                        f"current one) but n_pad={deltas.n_nodes} != "
+                        f"the layout's n_pad={self.config.n_pad} — a "
+                        "mis-stamped delta")
+                return dataclasses.replace(deltas,
+                                           layout_generation=None)
+            imap = self.remaps_by_gen.get(gen)
+            if imap is None:
+                if 0 <= gen < self.generation:
+                    raise GraceLapseError(
+                        f"delta is addressed in layout generation "
+                        f"{gen} but the service is at generation "
+                        f"{self.generation} and its grace window "
+                        f"(grace_generations="
+                        f"{self.config.grace_generations}) retains "
+                        f"only {sorted(self.remaps_by_gen)} — rebuild "
+                        "deltas against the current layout")
                 raise IngestError(
                     f"delta declares layout generation {gen} but the "
-                    f"service is at generation {self.generation}; "
-                    "remapping deltas across layout migrations is not "
-                    "yet ported")
-            deltas = dataclasses.replace(deltas, layout_generation=None)
+                    f"service is at generation {self.generation} "
+                    f"(known past generations: "
+                    f"{sorted(self.remaps_by_gen)}) — a mis-stamped "
+                    "delta")
+            if deltas.n_nodes != imap.shape[0]:
+                raise IngestError(
+                    f"delta declares layout generation {gen} but "
+                    f"n_pad={deltas.n_nodes} != that generation's "
+                    f"n_pad={imap.shape[0]} — a mis-stamped delta")
+            return remap_delta(deltas, imap, self.config.n_pad)
+        if deltas.n_nodes == self.config.n_pad \
+                or deltas.n_nodes not in self.remaps:
+            return deltas
+        return remap_delta(deltas, self.remaps[deltas.n_nodes],
+                           self.config.n_pad)
+
+    def _prepare(self, deltas: GraphDelta) -> Tuple:
+        """What `put` queues: the delta as given (transfer deferred)."""
+        return deltas, None, None
+
+    def put(self, deltas: GraphDelta) -> None:
+        deltas = self._maybe_remap(deltas)
         validate_stacked_delta(self.config, deltas)
         if len(self._queue) >= self.config.max_queue:
             raise IngestError(
                 f"ingestion queue full ({self.config.max_queue} "
                 f"pending tick(s)); poll() before ingesting more")
-        self._queue.append(deltas)
+        self._queue.append(self._prepare(deltas))
 
-    def take_all(self) -> list:
+    def _ready(self, entry: Tuple) -> GraphDelta:
+        """A queued entry's delta, usable on the current stream: the
+        stream waits on the entry's copy, and the allocator learns that
+        the stream reads the entry's device buffer."""
+        deltas, event, buf = entry
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            buf.record_stream(stream)
+        return deltas
+
+    def take_all(self) -> List[GraphDelta]:
         """Pop every pending tick, oldest first (a migration re-lays
         them out and puts them back)."""
-        out = list(self._queue)
+        out = [self._ready(e) for e in self._queue]
         self._queue.clear()
         return out
 
-    def get(self) -> Optional[GraphDelta]:
+    def pop(self) -> Optional[GraphDelta]:
+        """Pop the oldest pending tick as held — on the host for the
+        sync ingestor, on the device for the double-buffered one — with
+        no copy and no host sync (the pool-tick path's consumer moves
+        it itself)."""
         if not self._queue:
             return None
-        deltas = self._queue.popleft().map_tensors(
+        return self._ready(self._queue.popleft())
+
+    def get(self) -> Optional[GraphDelta]:
+        deltas = self.pop()
+        if deltas is None:
+            return None
+        deltas = deltas.map_tensors(
             lambda t: t.to(self.device).contiguous())
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -145,3 +261,80 @@ class SyncIngestor:
 
     def drain(self) -> None:
         self._queue.clear()
+
+
+class DoubleBufferedIngestor(SyncIngestor):
+    """Transfer-on-ingest: `put` starts the device copy on a side stream
+    at once, so it overlaps the tick in flight; `get` orders the current
+    stream after it and hands the delta to the tick."""
+
+    def __init__(self, config: ServiceConfig, device: torch.device,
+                 remaps: Optional[Dict[int, np.ndarray]] = None,
+                 remaps_by_gen: Optional[Dict[int, np.ndarray]] = None,
+                 generation: int = 0):
+        super().__init__(config, device, remaps, remaps_by_gen,
+                         generation)
+        n_slots = config.max_queue + 1
+        # (field layout, pinned flat buffer) and the event of the copy
+        # that last read each slot
+        self._slots: List[Optional[Tuple]] = [None] * n_slots
+        self._events: List[Optional[torch.cuda.Event]] = [None] * n_slots
+        self._next = 0
+        self._side = torch.cuda.Stream(device) \
+            if device.type == "cuda" else None
+
+    @staticmethod
+    def _fields(deltas: GraphDelta) -> Tuple:
+        """((name, shape, dtype, byte offset), ...) and the total bytes
+        of one flat staging buffer holding the delta's fields."""
+        fields, off = [], 0
+        for name, t in deltas.tensors().items():
+            fields.append((name, tuple(t.shape), t.dtype, off))
+            off += -(-t.numel() * t.element_size() // _ALIGN) * _ALIGN
+        return tuple(fields), off
+
+    @staticmethod
+    def _views(buf: torch.Tensor, fields: Tuple) -> Dict[str, torch.Tensor]:
+        out = {}
+        for name, shape, dtype, off in fields:
+            n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+            out[name] = buf[off:off + n].view(dtype).view(shape)
+        return out
+
+    def _prepare(self, deltas: GraphDelta) -> Tuple:
+        if self._side is None or deltas.dw.device.type == "cuda":
+            # the CPU path, or a tick a migration already holds on the
+            # device (ordered on the current stream by take_all)
+            return deltas, None, None
+        fields, nbytes = self._fields(deltas)
+        i = self._next
+        self._next = (i + 1) % len(self._slots)
+        if self._events[i] is not None:
+            self._events[i].synchronize()  # the slot's last copy landed
+        if self._slots[i] is None or self._slots[i][0] != fields:
+            self._slots[i] = (fields, torch.empty(
+                nbytes, dtype=torch.uint8, pin_memory=True))
+        pinned = self._slots[i][1]
+        src = deltas.tensors()
+        for name, view in self._views(pinned, fields).items():
+            view.copy_(src[name])
+        with torch.cuda.stream(self._side):
+            buf = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+            buf.copy_(pinned, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._side)
+        self._events[i] = event
+        views = self._views(buf, fields)
+        return dataclasses.replace(deltas, **views), event, buf
+
+    def get(self) -> Optional[GraphDelta]:
+        return self.pop()
+
+
+def make_ingestor(config: ServiceConfig, device: torch.device,
+                  remaps: Optional[Dict[int, np.ndarray]] = None,
+                  remaps_by_gen: Optional[Dict[int, np.ndarray]] = None,
+                  generation: int = 0) -> SyncIngestor:
+    cls = DoubleBufferedIngestor \
+        if config.ingestion == "double_buffered" else SyncIngestor
+    return cls(config, device, remaps, remaps_by_gen, generation)

@@ -104,7 +104,9 @@ def save_checkpoint(ckpt_dir: str, step: int, tree,
                 "n_arrays": len(arrays),
                 "metadata": metadata or {}}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
+        # json.dumps encodes in C; json.dump streams through the Python
+        # encoder, 10x slower on a sparse service's SlotMap payloads
+        f.write(json.dumps(manifest))
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)  # atomic publish

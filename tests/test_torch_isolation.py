@@ -1,7 +1,8 @@
 """The port stands alone and keeps its device rules.
 
 - Importing `repro_torch` and every submodule loads neither JAX nor any
-  module of the JAX package `repro`; neither does ``chip_smoke.py``.
+  module of the JAX package `repro`; neither does ``chip_smoke.py`` nor
+  the bench twin ``tools/streams_bench_torch.py``.
 - Asking for ``cuda`` where CUDA is unavailable raises; nothing carries
   on quietly on the CPU.
 - On CPU tensors the kernel wrappers run their plain versions and leave
@@ -55,7 +56,9 @@ def test_import_every_submodule_loads_no_jax_and_no_repro():
               "repro_torch.core.sparse", "repro_torch.kernels.sparse_tick.ops",
               "repro_torch.kernels.sparse_tick.ref",
               "repro_torch.kernels.sparse_tick.parity",
-              "repro_torch.serving.migrate",
+              "repro_torch.serving.migrate", "repro_torch.serving.ingest",
+              "repro_torch.serving.plans", "repro_torch.serving.config",
+              "repro_torch.graphs.layout", "repro_torch.engine.stream",
               "repro_torch.configs.granite_moe_3b",
               "repro_torch.models.transformer", "repro_torch.models.moe",
               "repro_torch.models.api", "repro_torch.data.pipeline",
@@ -83,14 +86,25 @@ def test_import_every_submodule_loads_no_jax_and_no_repro():
     assert _foreign(out) == []
 
 
-def test_chip_smoke_imports_no_jax_and_no_repro():
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+def _imported(path):
+    """Every module a script's source imports, at any depth."""
     mods = []
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             mods += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.module:
             mods.append(node.module)
+    return mods
+
+
+def test_chip_smoke_imports_no_jax_and_no_repro():
+    mods = _imported(ROOT / "chip_smoke.py")
+    assert "repro_torch.serving" in mods
+    assert _foreign(mods) == []
+
+
+def test_streams_bench_twin_imports_no_jax_and_no_repro():
+    mods = _imported(ROOT / "tools" / "streams_bench_torch.py")
     assert "repro_torch.serving" in mods
     assert _foreign(mods) == []
 

@@ -19,7 +19,6 @@ import repro.graphs.types as jtypes
 import repro.serving as jserving
 from repro_torch.graphs import types as ttypes
 from repro_torch.serving import (
-    CheckpointPolicy,
     FingerService,
     IngestError,
     ServiceConfig,
@@ -183,8 +182,6 @@ def test_top_k_ties_keep_the_lower_stream_id_first():
 @pytest.mark.parametrize("kw", [
     dict(placement="sharded"),
     dict(placement="multipod"),
-    dict(ingestion="double_buffered"),
-    dict(checkpoint=CheckpointPolicy(directory="ckpts")),
     dict(compilation_cache_dir="cache"),
 ])
 def test_options_not_yet_ported_raise_by_name(kw):

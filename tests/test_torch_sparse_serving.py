@@ -26,7 +26,7 @@ from repro_torch.engine import stack_deltas
 from repro_torch.graphs import types as ttypes
 from repro_torch.graphs.generators import erdos_renyi
 from repro_torch.serving import FingerService
-from _torch_parity import assert_close
+from _torch_parity import assert_close, assert_state_close
 from test_torch_sparse import (VirtualStreams, assert_sparse_state_close,
                                raised)
 
@@ -208,9 +208,12 @@ def test_sparse_refusals_match_the_reference():
     assert raised(lambda: tdense.ingest(tslot)) == jerr
     assert raised(lambda: tdense.grow_capacity(n_slots=64)) == \
         raised(lambda: jdense.grow_capacity(n_slots=64))
-    # the dense repad is a migration the port has not ported yet
-    with pytest.raises(tserving.ServiceConfigError, match="not yet ported"):
-        tdense.repad(2 * N_VIRTUAL)
+    # the dense repad grows both services' layouts alike
+    jdense.repad(2 * N_VIRTUAL)
+    tdense.repad(2 * N_VIRTUAL)
+    assert (tdense.layout.n_pad, tdense.layout.generation) == \
+        (2 * N_VIRTUAL, 1)
+    assert_state_close(tdense.states(), jdense.states(), "dense repad")
 
 
 def test_sparse_ingest_is_atomic_over_the_batch():
