@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed S] [--batch B]
 
 Run from the root of a checkout; it imports `repro_torch` from
-``src/`` and never JAX or the JAX package. Seven phases, each printing a
+``src/`` and never JAX or the JAX package. Eight phases, each printing a
 line of its own; any failure exits non-zero:
 
 1. build   — the hand-written kernels from ``src/repro_torch/csrc/``,
@@ -14,7 +14,8 @@ line of its own; any failure exits non-zero:
              (n_pad not a multiple of 128, odd k, 3 join slots) over
              the edge-case batch of `kernels/stream_tick/parity.py`,
              both ``exact_smax`` values, out of place and in place;
-             ``stream_tick_fused_stacked`` at S = 3; ``delta_stats``
+             ``stream_tick_fused_stacked`` at S = 3 × B = 2048 (its
+             time is taken on phase 8's inputs); ``delta_stats``
              from the gated delta (and ungated) against
              `delta_stats_gated_ref` in float64 (the kernel sums in
              float64) at k = 1, 7, 128 (keys in registers), 129, 1000
@@ -30,7 +31,8 @@ line of its own; any failure exits non-zero:
              out-of-range slots, all-masked rows) at the sparse serving
              size and at a ragged size (n_slots, m_pad not multiples of
              32), both ``exact_smax`` values, out of place and in place,
-             and ``sparse_tick_fused_stacked`` at S = 2; ``vnge_q`` at
+             and ``sparse_tick_fused_stacked`` at S = 2 × B = 2048 (timed
+             on phase 8's inputs); ``vnge_q`` at
              n = 40, 1000 (ragged) and 8192, with and without a node
              mask; ``entropy_probe``'s row stats and graph stats (the
              closed (BH, 4) statistics) at (BH, S) = (192, 128),
@@ -94,7 +96,7 @@ line of its own; any failure exits non-zero:
 5. sparse  — the sparse path: `FingerService.open(ServiceConfig(
              method="sparse_tick", placement="local",
              ingestion="double_buffered",
-             exact_smax=True, batch_size=4096, n_pad=2**20,
+             exact_smax=True, batch_size=1024, n_pad=2**20,
              n_slots=1024, m_pad=8192, k_pad=128, j_pad=8), graphs)`
              over virtual-space `EdgeList`s made one at a time (256–1024
              active nodes a stream at ids spread over [0, 2²⁰), about 4n
@@ -111,6 +113,8 @@ line of its own; any failure exits non-zero:
              their `SlotMap` slots and 0 elsewhere. It ends with a
              `save` and a `restore`: the `SlotMap` JSON equal, the state
              bit-equal, and one more tick bit-equal on both services.
+             B is cut from 4096 to 1024 (its host `SlotMap` work scales
+             with B) to pay for phase 8.
 6. train   — the training path: `repro_torch.launch.train.run` on
              granite-moe-3b-a800m at full width with ``n_layers=8`` (the
              only cut: 32 layers of f32 AdamW state are 53 GB), batch 8 ×
@@ -129,11 +133,13 @@ line of its own; any failure exits non-zero:
              ``routing_jsdist`` ≥ 0; ``entropy_probe`` launched once a
              kernel per probe step, ``vnge_q`` three times per routing
              update and no other kernel; a checkpoint of the trained
-             embedding, the first expert stack (``w_gate`` over all
-             layers), the key/value projections, router and norm weights
-             with their moments and step restores bit-identical on the
-             card (seconds printed); a second run from the same seed
-             repeats every loss bit for bit.
+             embedding, the first expert stack (``w_gate`` of the first
+             ``TRAIN_CKPT_LAYERS`` = 2 layers: cut from all 8, whose
+             one-thread zlib write took 175–210 s, to pay for phase 8),
+             the key/value projections, router and norm weights with
+             their moments and step restores bit-identical on the card
+             (seconds printed); a second run from the same seed repeats
+             every loss bit for bit.
 7. offline — the offline spectral path: a planted partition of n = 2¹⁸
              nodes in 256 contiguous communities (mean degree 16 inside,
              0.05 across) drawn as an edge list from ``--seed``; G' moves
@@ -156,18 +162,57 @@ line of its own; any failure exits non-zero:
              instances, ``power_iters=50``): the top-2 detection rate,
              card scores within 1e-4 of the CPU's (as divergences where
              JSdiv < 1e-3).
+8. fleet   — the multi-tenant fleet: `FingerFleet.open(FleetConfig(pools=
+             (small: n_pad 256, 4 shards × 2048 streams; large: n_pad
+             1024, 2 × 2048, both ``fused_tick``; virtual: n_pad 2²⁰, 2
+             × 512, ``sparse_tick`` with n_slots 1024, m_pad 8192), k_pad
+             128, j_pad 8, exact s_max, compact_occupancy 0.5))` on the
+             card. It admits 6144, 3072 and 768 tenants (`EdgeList`s from
+             ``--seed``: 128–256, 257–1024 nodes, and 256–1024 active ids
+             spread over [0, 2²⁰), about 4n edges), each checked to land
+             in its best-fit pool; the large pool is filled for a moment
+             so that one virtual tenant whose ids lie below 1024 spills
+             into the sparse bucket. Then 10 ticks of the phase-3 mix a
+             tenant (bursts planted in 4 tenants of the three pools on
+             the last), and events each followed by a checked tick: 8
+             small tenants join 8 fresh ids each and are promoted live by
+             `ensure_capacity`; the spill tenant is promoted into
+             ``large``; the tenants of one small shard with a node active
+             at or above 127 are evicted and `rebalance()` under a staged
+             tick compacts it into a group of its own; `save`, then
+             `restore` with ``stacked_ticks=True`` and with ``False``
+             (each bit-equal with the saved state) and 3 ticks through
+             both; then `kill_shard` of another small shard, a WAL-only
+             tick and `recover()` from its checkpoint. Checks: best-fit
+             placement; the planted tenants are the top 4; 64 sampled
+             tenants (promoted and recovered ones among them) within
+             5e-3 of batch `jsdist_tilde` of their mirrored graphs after
+             every event; in steady state two ``stream_tick_stacked``
+             launches and one ``sparse_tick_stacked`` a tick and no
+             single-shard launch (one more after the compaction), one
+             launch a live shard shard by shard; the two restores
+             bit-equal, scores and every shard's state, at each tick.
+             Prints admission seconds per pool, per tick the host
+             ingest, poll (host and CUDA events) and scores times and
+             the loop's stream-ticks/s stacked and shard by shard, and
+             every event's pause.
 
 Each phase prints its seconds. Every wrapper's launch count is set to 0
-just before phases 3 (and again before its lifecycle part), 4, 5, 6
-and 7 and read just after each path; a kernel's ``launches`` in the
+just before phases 3 (and again before its lifecycle part), 4, 5, 6,
+7 and 8 and read just after each path; a kernel's ``launches`` in the
 kernels line is the sum over those paths. Kernel times are CUDA-event means of the
 launch each path makes, at its shapes and inputs: ``stream_tick`` in
 place on a copy of a main-path tick's state restored before every call,
 ``sparse_tick`` in place (and out of place) on a copy of a sparse-path
 tick's state and slot-space delta, ``delta_stats`` as the whole
 `delta_stats_fused` call of phase 4's first update from its gated
-delta, ``stream_tick_fused_stacked`` out of place on phase 2's stacked
-case, ``vnge_q`` as the whole `vnge_q_stats` call on the trained
+delta, ``stream_tick_stacked`` and ``sparse_tick_stacked`` in place on a
+copy of a phase-8 tick's stacked state and delta of the large (S = 2 ×
+B = 2048, n_pad = 1024) and the virtual pool's group (S = 2 × B = 512,
+n_slots = 1024, m_pad = 8192), restored before every call (beside each,
+the group's stack of its shards' states and deltas by CUDA events and
+its unstack into views by host time), ``vnge_q`` as the whole
+`vnge_q_stats` call on the trained
 model's routing graph and the probe
 kernels on its probe logits (each also at phase 2's largest shape,
 with the whole `attention_graph_stats` call at both shapes and, as the
@@ -219,11 +264,15 @@ LOOP_T = 10  # phase 3's ticks under both ingestions after the restore
 PRIME_STRIDE = 8209  # a prime above every candidate count 8·n_e ≤ 8160
 # the sparse path: B streams in a 2^20-id virtual space, sized by slots
 N_VIRTUAL, SP_BATCH, SP_SLOTS, SP_M_PAD = 1 << 20, 4096, 1024, 8192
+# phase 5's B, cut from SP_BATCH (phase 2's sparse cases keep it): its
+# host SlotMap work scales with B and pays for phase 8's time
+SP_PATH_BATCH = 1024
 GROW_T, REPAD_T = 12, 14  # ticks of the capacity growth and the repad
 # the train path: granite-moe-3b-a800m at full width, cut to 8 layers
 TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = \
     "granite-moe-3b-a800m", 8, 8, 1024
 TRAIN_STEPS, PROBE_EVERY, TRAIN_LR = 10, 2, 3e-3
+TRAIN_CKPT_LAYERS = 2  # layers of the expert stack in the checkpoint
 VNGE_NS = (40, 1000, 8192)
 B_STATS = 1024  # streams of phase 2's batched delta_stats case
 PROBE_SHAPES = ((192, 128), (48, 1000), (192, 1024))
@@ -236,6 +285,15 @@ OFF_BURST, OFF_BURST_DEG = 0.01, 16
 DENSE_N, DENSE_DEG = 4096, 16.0  # exact H and jsdist_exact, dense ER
 # Table 3 at the reference benchmark's setting (benchmarks/table3_dos.py)
 DOS_N, DOS_X, DOS_INSTANCES, DOS_ITERS = 250, 0.10, 10, 50
+# the fleet path: pools (name, n_pad, shards, streams per shard, method)
+# in ascending n_pad, the sparse bucket last with its virtual bound (its
+# slot capacities are SP_SLOTS and SP_M_PAD); about 75 % of each admitted
+FLEET_POOLS = (("small", 256, 4, 2048, "fused_tick"),
+               ("large", N_PAD, 2, 2048, "fused_tick"),
+               ("virtual", N_VIRTUAL, 2, 512, "sparse_tick"))
+FLEET_TENANTS = (6144, 3072, 768)
+FLEET_TICKS, FLEET_RESTORED_TICKS = 10, 3
+FLEET_GROWN = 8  # small tenants grown past 256 nodes, promoted live
 CHECKED = ("bsr_spmv", "delta_stats", "entropy_probe", "sparse_tick",
            "stream_tick", "vnge_q")
 SP_FIELDS = ("q", "s_total", "s_max", "strengths", "node_mask",
@@ -407,21 +465,25 @@ class Fleet:
         dw[:k] = np.r_[-w[gone], 1.5 * s[tops[0]] / len(grow) - w[grow]]
         return slots, dw, np.arange(K_PAD) < k
 
-    def tick_arrays(self, burst_rows=()):
+    def tick_arrays(self, burst_rows=(), quiet_rows=(), gated_only=False):
         """One tick's (B, K_PAD) lanes and (B, J_PAD) node slots in local
         ids, as numpy arrays (lo, hi, dw, w_old, lane mask, node ids,
-        node flags); the mirror follows the tick."""
+        node flags); the mirror follows the tick. ``quiet_rows`` send an
+        empty delta; with ``gated_only`` a lane is sent only where both
+        endpoints are active after the tick's joins (the others change
+        nothing, and a producer would not send them)."""
         np, rng, b = self.np, self.rng, self.b
         ar = np.arange(b)
+        quiet = np.isin(ar, list(quiet_rows))
         nid = np.zeros((b, J_PAD), np.int32)
         nflag = np.zeros((b, J_PAD), np.float32)
-        join_a = (rng.random(b) < 0.1) & (self.a_joined < 4)
+        join_a = (rng.random(b) < 0.1) & (self.a_joined < 4) & ~quiet
         va = self.n_u - 8 + self.a_joined
         nid[join_a, 0] = va[join_a]
         nflag[join_a, 0] = 1.0
         self.active[ar[join_a], va[join_a]] = True
         self.a_joined += join_a
-        toggle = rng.random(b) < 0.2
+        toggle = (rng.random(b) < 0.2) & ~quiet
         vb = self.n_u - 4 + rng.integers(0, 4, b)
         was = self.active[ar, vb]
         nid[toggle, 1] = vb[toggle]
@@ -439,7 +501,8 @@ class Fleet:
         dw = np.where(w_cur > 0,
                       np.where(u < 0.2, -w_cur, w_cur * 0.4 * (new - 1.0)),
                       np.where(u < 0.2, new, 0.0)).astype(np.float32)
-        emask = lane < rng.integers(K_PAD // 2, K_PAD + 1, b)[:, None]
+        emask = (lane < rng.integers(K_PAD // 2, K_PAD + 1, b)[:, None]) \
+            & ~quiet[:, None]
         for r in burst_rows:
             c[r], dw[r], emask[r] = self.hub_shift(r)
             lo[r], hi[r] = self.endpoints(c[r:r + 1], slice(r, r + 1))
@@ -449,6 +512,11 @@ class Fleet:
         w_old = np.where(emask, w_cur, 0.0).astype(np.float32)
         gate = emask & self.active[ar[:, None], lo] \
             & self.active[ar[:, None], hi]
+        if gated_only:
+            emask = gate
+            lo, hi = np.where(emask, lo, 0), np.where(emask, hi, 0)
+            dw = np.where(emask, dw, 0.0).astype(np.float32)
+            w_old = np.where(emask, w_old, 0.0).astype(np.float32)
         rows, lanes = np.nonzero(gate)
         self.w[rows, c[rows, lanes]] = (w_cur + dw)[rows, lanes]
         self.active[ar[toggle], vb[toggle]] = ~was[toggle]
@@ -621,8 +689,7 @@ def phase_kernels(args, torch, out, dev):
     err = st_parity.compare(got, want, "stream_tick_stacked")
     errs["stream_tick_stacked"] = err
     print(f"  stream_tick_fused_stacked S=3 B=2048: max_abs_err={err:.3e}")
-    out["st_stacked"] = (states, deltas)
-    del cases, got, want
+    del cases, states, deltas, got, want
     phase_kernels_delta_stats(args, torch, errs, dev)
 
     def sparse(inplace, stacked=False):
@@ -676,7 +743,7 @@ def phase_kernels(args, torch, out, dev):
         errs["sparse_tick_stacked"] = max(errs["sparse_tick_stacked"], err)
         print(f"  sparse_tick_fused_stacked S=2 B={SP_BATCH // 2} "
               f"inplace={inplace}, 2 ticks: max_abs_err={err:.3e}")
-    out["sparse_stacked"] = (states, d1)
+    del cases, states, d1, d2
     out["errs"] = errs
     phase_kernels_train(args, errs, dev)
     phase_kernels_bsr(args, torch, errs, dev)
@@ -1268,11 +1335,12 @@ def phase_sparse(args, torch, out, dev):
     from repro_torch.serving import FingerService, ServiceConfig, TopKSpec
 
     t0 = time.perf_counter()
-    fleet = SparseFleet(SP_BATCH, args.seed + 3)
+    print(f"  cut: batch_size {SP_PATH_BATCH} instead of {SP_BATCH}")
+    fleet = SparseFleet(SP_PATH_BATCH, args.seed + 3)
     t1 = time.perf_counter()
     cfg = ServiceConfig(method="sparse_tick", placement="local",
                         ingestion="double_buffered", exact_smax=True,
-                        batch_size=SP_BATCH, n_pad=N_VIRTUAL,
+                        batch_size=SP_PATH_BATCH, n_pad=N_VIRTUAL,
                         n_slots=SP_SLOTS, m_pad=SP_M_PAD, k_pad=K_PAD,
                         j_pad=J_PAD, topk=TopKSpec(k=4))
     graph_s = [0.0]
@@ -1281,14 +1349,15 @@ def phase_sparse(args, torch, out, dev):
     t_open = time.perf_counter() - t1
     n_active = float(svc.states().node_mask.sum(-1).mean())
     edges = np.mean([len(m.edge_slot) for m in svc.slot_maps])
-    print(f"  opened B={SP_BATCH} n_pad={N_VIRTUAL} n_slots={SP_SLOTS} "
+    print(f"  opened B={SP_PATH_BATCH} n_pad={N_VIRTUAL} n_slots={SP_SLOTS} "
           f"m_pad={SP_M_PAD} k_pad={K_PAD} j_pad={J_PAD}: mirrors "
           f"{t1 - t0:.1f} s; open {t_open:.1f} s = graphs "
           f"{graph_s[0]:.1f} s + build {t_open - graph_s[0]:.1f} s; mean "
           f"active nodes {n_active:.0f}, mean edges {edges:.0f}")
     rng = np.random.default_rng(args.seed + 4)
-    planted = sorted(rng.choice(SP_BATCH, 4, replace=False).tolist())
-    sampled = sorted(set(rng.choice(SP_BATCH, 60, replace=False).tolist())
+    planted = sorted(rng.choice(SP_PATH_BATCH, 4, replace=False).tolist())
+    sampled = sorted(set(rng.choice(SP_PATH_BATCH, 60,
+                                    replace=False).tolist())
                      | set(planted))
 
     def worst_score_diff(before):
@@ -1393,7 +1462,7 @@ def phase_sparse(args, torch, out, dev):
           f"median tick {med:.3f} ms (CUDA events around poll), median "
           f"host ingest (SlotMap translation, stacking, the pinned copy "
           f"and the side-stream copy's start) {np.median(ingest_ms):.1f} ms, "
-          f"{SP_BATCH / med * 1e3:.4g} stream-ticks/s; sparse_tick "
+          f"{SP_PATH_BATCH / med * 1e3:.4g} stream-ticks/s; sparse_tick "
           f"launches {launches}")
     print(f"  tick latency min {min(tick_ms):.3f} / max {max(tick_ms):.3f} "
           f"ms; median host time of poll {np.median(poll_ms):.3f} ms; "
@@ -1503,9 +1572,8 @@ def sparse_bytes(before, after, deltas) -> tuple:
 
 
 def sparse_rows(torch, out):
-    """The sparse_tick rows of the kernels line: the in-place launch the
-    sparse path makes on a main-path tick's inputs, and the stacked form
-    over S·B rows on the phase-2 stacked case."""
+    """The sparse_tick row of the kernels line: the in-place launch the
+    sparse path makes, on a copy of a sparse-path tick's inputs."""
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.sparse_tick import ops as sp_ops
     from repro_torch.kernels.sparse_tick import parity as sp_parity
@@ -1513,9 +1581,8 @@ def sparse_rows(torch, out):
 
     errs, rows = out["errs"], []
     for name, (snap, deltas), fn in (
-            ("sparse_tick", out["sparse_snap"], sp_ops.sparse_tick_fused),
-            ("sparse_tick_stacked", out["sparse_stacked"],
-             sp_ops.sparse_tick_fused_stacked)):
+            ("sparse_tick", out.pop("sparse_snap"),
+             sp_ops.sparse_tick_fused),):
         work = snap.map_tensors(torch.clone)
 
         def restore(work=work, snap=snap):
@@ -1549,8 +1616,7 @@ def sparse_rows(torch, out):
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/sparse_tick.cu",
-            "replaces": "src/repro/kernels/sparse_tick/kernel.py:"
-                        + ("195" if name == "sparse_tick" else "251"),
+            "replaces": "src/repro/kernels/sparse_tick/kernel.py:195",
             "launches": out["launches"][name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": b_in / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -1660,29 +1726,6 @@ def kernel_rows(torch, out):
         "bound_by": "bytes", "library_ms": None,
         "empty_launch_ms": empty, "path_ms_a_delta": out.pop("single_ms")})
 
-    # the (S, B) form, out of place on phase 2's stacked case; no path
-    # calls it yet (the fleet's pooled tick is not ported), so its count
-    # from the paths is 0
-    states, deltas = out["st_stacked"]
-    ms = cuda_ms(lambda: st_ops.stream_tick_fused_stacked(
-        states, deltas, exact_smax=True), 20)
-    plain = cuda_ms(lambda: stream_tick_ref(states, deltas, exact_smax=True),
-                    5)
-    *lead, n = states.strengths.shape
-    k, j = deltas.dw.shape[-1], deltas.node_ids.shape[-1]
-    rows_st = lead[0] * lead[1]
-    # read as a tick; written: dist, 3 scalars and the whole rows
-    bytes_stacked = rows_st * (4 * 3 + 8 * n + 20 * k + 8 * j) \
-        + rows_st * (4 * 4 + 8 * n)
-    rows.append({
-        "name": "stream_tick_stacked", "route": "cuda",
-        "source": "src/repro_torch/csrc/stream_tick.cu",
-        "replaces": "src/repro/kernels/stream_tick/kernel.py:242",
-        "launches": out["launches"]["stream_tick_stacked"],
-        "max_abs_err": errs["stream_tick_stacked"],
-        "ms": ms, "plain_ms": plain,
-        "bound_ms": bytes_stacked / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes", "library_ms": None})
     for r in rows:
         print_row(r)
     return rows
@@ -1800,16 +1843,18 @@ def phase_train(args, torch, out, dev):
                                            probe_len=min(TRAIN_SEQ, 128)))
 
     # a checkpoint of the trained embedding and first expert stack
-    # (w_gate over all layers), the key/value projections, router and
-    # norm weights, with their moments and the step, restores
-    # bit-identical on the card
+    # (w_gate of the first TRAIN_CKPT_LAYERS layers), the key/value
+    # projections, router and norm weights, with their moments and the
+    # step, restores bit-identical on the card
     def part(tree):
         b = tree["blocks"]["L0"]
         return {"embed": tree["embed"], "final_norm": tree["final_norm"],
                 "blocks": {"L0": {
                     "ln1": b["ln1"], "ln2": b["ln2"],
                     "attn": {k: b["attn"][k] for k in ("wk", "wv")},
-                    "moe": {k: b["moe"][k] for k in ("router", "w_gate")}}}}
+                    "moe": {"router": b["moe"]["router"],
+                            "w_gate": b["moe"]["w_gate"][
+                                :TRAIN_CKPT_LAYERS]}}}}
 
     tree = {"params": part(params), "opt": AdamWState(
         step=opt_state.step, mu=part(opt_state.mu), nu=part(opt_state.nu))}
@@ -2298,6 +2343,719 @@ def offline_rows(torch, out, dev):
     return [row]
 
 
+class FleetTenants:
+    """Phase 8's tenants and their host mirrors, one mirror a pool.
+
+    ``small`` and ``large`` are dense `Fleet` mirrors in the tenants'
+    own node spaces (tenant b of ``small`` has node ids [0, n_u[b])),
+    ``virtual`` a `SparseFleet` whose tenants address their 256–1024
+    active ids in a 2²⁰-id space; its tenant 0, the spill tenant, holds
+    ids in [0, N_PAD) and admits while ``large`` is full, so that it
+    lands in ``virtual`` and can be promoted into ``large`` later.
+    Tenant names are ``s<b>``, ``l<b>`` and ``v<b>``. Dense ticks send
+    only the lanes whose endpoints are active (`Fleet.tick_arrays`'s
+    ``gated_only``), so no delta addresses a slot a compaction dropped.
+    """
+
+    SPILL = 0
+
+    def __init__(self, seed: int):
+        import numpy as np
+
+        self.np = np
+        n_s, n_l, n_v = FLEET_TENANTS
+        self.mirrors = {
+            "small": Fleet(n_s, seed, n_lo=128, n_hi=FLEET_POOLS[0][1]),
+            "large": Fleet(n_l, seed + 1, n_lo=FLEET_POOLS[0][1] + 1,
+                           n_hi=FLEET_POOLS[1][1]),
+            "virtual": SparseFleet(n_v, seed + 2)}
+        self.prefix = {"small": "s", "large": "l", "virtual": "v"}
+        v = self.mirrors["virtual"]
+        v.vid[self.SPILL] = v.rng.permutation(N_PAD)
+        self.n_nodes = {k: m.n_u.copy() for k, m in self.mirrors.items()
+                        if k != "virtual"}
+
+    def name(self, key: str, b: int) -> str:
+        return f"{self.prefix[key]}{b}"
+
+    def row(self, name: str):
+        key = {"s": "small", "l": "large", "v": "virtual"}[name[0]]
+        return key, int(name[1:])
+
+    def graph(self, key: str, b: int):
+        """Tenant b's initial graph: an `EdgeList` in its own node space
+        (virtual tenants: the 2²⁰-id space; the spill tenant: N_PAD)."""
+        import torch
+
+        from repro_torch.graphs.types import EdgeList
+
+        np, m = self.np, self.mirrors[key]
+        nz = np.flatnonzero(m.w[b])
+        lo, hi = m.endpoints(nz[None, :], slice(b, b + 1))
+        if key != "virtual":
+            n = int(m.n_u[b])
+            return EdgeList.from_arrays(
+                lo[0], hi[0], m.w[b, nz], n_nodes=n,
+                node_mask=m.active[b, :n].astype(np.float32))
+        n = N_PAD if b == self.SPILL else N_VIRTUAL
+        mask = np.zeros(n, np.float32)
+        v = m.vid[b]
+        mask[v[np.flatnonzero(m.active[b])]] = 1.0
+        return EdgeList.from_arrays(v[lo[0]], v[hi[0]], m.w[b, nz],
+                                    n_nodes=n,
+                                    node_mask=torch.from_numpy(mask))
+
+    def tick(self, live, burst=None, quiet=(), grow=()):
+        """One fleet tick's tenant-space deltas for the ``live`` names;
+        every mirror follows its tick. ``burst`` maps a pool to its
+        planted rows; ``quiet`` rows (of ``small``) send an empty delta;
+        ``grow`` rows of ``small`` send 8 joins of fresh ids past their
+        node space and nothing else."""
+        import dataclasses
+
+        from repro_torch.graphs.types import GraphDelta
+
+        np = self.np
+        burst = burst or {}
+        out = {}
+        for key, m in self.mirrors.items():
+            rows = burst.get(key, ())
+            if key == "virtual":
+                vds = m.virtual_deltas(N_VIRTUAL, rows)
+                for b, d in enumerate(vds):
+                    name = self.name(key, b)
+                    if name in live:
+                        out[name] = d if b != self.SPILL else \
+                            dataclasses.replace(d, n_nodes=N_PAD)
+                continue
+            lo, hi, dw, w_old, emask, nid, nflag = m.tick_arrays(
+                rows, quiet_rows=[*quiet, *grow] if key == "small" else (),
+                gated_only=True)
+            if key == "small":
+                for b in grow:
+                    n = int(self.n_nodes[key][b])
+                    nid[b] = np.arange(n, n + J_PAD)
+                    nflag[b] = 1.0
+                    m.active[b, n:n + J_PAD] = True
+                    self.n_nodes[key][b] = n + J_PAD
+            t = host_tensor
+            f = dict(senders=t(lo, "int32"), receivers=t(hi, "int32"),
+                     dw=t(dw, "float32"), w_old=t(w_old, "float32"),
+                     mask=t(emask, "float32"), node_ids=t(nid, "int32"),
+                     node_flag=t(nflag, "float32"))
+            n_nodes = self.n_nodes[key]
+            for b in range(m.b):
+                name = self.name(key, b)
+                if name in live:
+                    out[name] = GraphDelta(
+                        n_nodes=int(n_nodes[b]),
+                        **{k: v[b] for k, v in f.items()})
+        return out
+
+    def snapshot(self, names):
+        """The sampled tenants' mirror rows before a tick."""
+        out = {}
+        for name in names:
+            key, b = self.row(name)
+            m = self.mirrors[key]
+            out[name] = (m.w[b].copy(), m.active[b].copy())
+        return out
+
+    def worst(self, names, before, scores, dev) -> float:
+        """Largest |score − batch jsdist_tilde| over ``names``, on the
+        mirrors' graphs before and after the tick (relabelled into the
+        local N_PAD layout)."""
+        from repro_torch.core.jsdist import jsdist_tilde
+
+        worst = 0.0
+        for name in names:
+            key, b = self.row(name)
+            m = self.mirrors[key]
+            g0 = m.graph_at(b, *before[name], dev)
+            g1 = m.graph_at(b, m.w[b], m.active[b], dev)
+            worst = max(worst, abs(float(jsdist_tilde(g0, g1))
+                                   - float(scores[name])))
+        return worst
+
+
+def fleet_config(directory: str, stacked: bool = True):
+    """Phase 8's `FleetConfig`: FLEET_POOLS, each at k_pad = 128, j_pad =
+    8 with exact s_max, compaction below half occupancy."""
+    from repro_torch.fleet import FleetConfig, PoolSpec
+
+    pools = []
+    for name, n_pad, shards, b, method in FLEET_POOLS:
+        extra = dict(n_slots=SP_SLOTS, m_pad=SP_M_PAD) \
+            if method == "sparse_tick" else {}
+        pools.append(PoolSpec(name=name, n_pad=n_pad, shards=shards,
+                              streams_per_shard=b, k_pad=K_PAD, j_pad=J_PAD,
+                              method=method, exact_smax=True, **extra))
+    return FleetConfig(pools=tuple(pools), directory=directory,
+                       compact_occupancy=0.5, stacked_ticks=stacked)
+
+
+def fleet_bits(torch, fleet) -> dict:
+    """Every live shard's state and every tenant's score, on the host."""
+    torch.cuda.synchronize()
+    bits = {(p, s, k): v.cpu().numpy()
+            for p, s in fleet.live_shard_ids()
+            for k, v in fleet.shard_service(p, s).states().tensors().items()}
+    bits["scores"] = fleet.scores()
+    return bits
+
+
+def check_fleet_bits(label, got, *others) -> None:
+    """Raise unless every `fleet_bits` in ``others`` equals ``got`` bit
+    for bit (scores compared as floats, which are the bits)."""
+    import numpy as np
+
+    for other in others:
+        if other.keys() != got.keys() or other["scores"] != got["scores"]:
+            raise AssertionError(f"{label}: scores or shards differ")
+        for k, v in got.items():
+            if k != "scores" and not np.array_equal(v, other[k]):
+                raise AssertionError(f"{label}: {k} differs")
+
+
+class FleetTicker:
+    """Drives one `FingerFleet` tick by tick, timing each part and
+    counting launches by entry point."""
+
+    def __init__(self, torch, fleet, tenants, dev):
+        self.torch, self.fleet, self.tenants, self.dev = \
+            torch, fleet, tenants, dev
+        self.log = []
+
+    def run(self, deltas=None, staged=None, **tick_kw):
+        """ingest (the given deltas or the tenants' next tick) → ``staged``
+        (called with a tick staged) → poll → scores. Returns the deltas
+        ingested and the scores."""
+        import time as _time
+
+        from repro_torch.kernels.sparse_tick import ops as sp_ops
+        from repro_torch.kernels.stream_tick import ops as st_ops
+
+        torch, fleet = self.torch, self.fleet
+        if deltas is None:
+            deltas = self.tenants.tick(set(fleet.directory.names()),
+                                       **tick_kw)
+        before = dict(st_ops.LAUNCHES) | dict(sp_ops.LAUNCHES)
+        torch.cuda.synchronize()
+        h0 = _time.perf_counter()
+        fleet.ingest(deltas)
+        h1 = _time.perf_counter()
+        if staged is not None:
+            staged()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        h2 = _time.perf_counter()
+        ev0.record()
+        fleet.poll()
+        ev1.record()
+        h3 = _time.perf_counter()
+        scores = fleet.scores()
+        h4 = _time.perf_counter()
+        ev1.synchronize()
+        after = dict(st_ops.LAUNCHES) | dict(sp_ops.LAUNCHES)
+        self.log.append({
+            "ingest_ms": (h1 - h0) * 1e3, "poll_host_ms": (h3 - h2) * 1e3,
+            "poll_cuda_ms": ev0.elapsed_time(ev1),
+            "scores_ms": (h4 - h3) * 1e3,
+            "wall_ms": (h1 - h0 + h4 - h2) * 1e3,
+            "launches": {k: after[k] - before[k] for k in after},
+            "poll_launches": fleet.last_poll_launches})
+        return deltas, scores
+
+    def expect(self, label, stacked: int, sparse_stacked: int = 1,
+               single: int = 0, sparse_single: int = 0) -> None:
+        got = self.log[-1]["launches"]
+        want = {"stream_tick_stacked": stacked,
+                "sparse_tick_stacked": sparse_stacked,
+                "stream_tick": single, "sparse_tick": sparse_single}
+        if got != want:
+            raise AssertionError(f"{label}: launches {got} != {want}")
+        if self.log[-1]["poll_launches"] != sum(want.values()):
+            raise AssertionError(
+                f"{label}: last_poll_launches "
+                f"{self.log[-1]['poll_launches']} != {sum(want.values())}")
+
+
+
+class FleetPhase:
+    """Phase 8, step by step: admission, the steady ticks, the events
+    (growth, a sparse→dense promotion, a staged compaction, save and
+    two restores, a shard's death and recovery), each followed by a
+    tick whose sampled scores are checked."""
+
+    def __init__(self, args, torch, dev):
+        import shutil
+
+        import numpy as np
+
+        self.np, self.torch, self.dev = np, torch, dev
+        self.root = Path(__file__).resolve().parent / "build" / "fleet"
+        shutil.rmtree(self.root, ignore_errors=True)
+        t0 = time.perf_counter()
+        self.tenants = FleetTenants(args.seed + 5)
+        self.mirrors_s = time.perf_counter() - t0
+        self.rng = np.random.default_rng(args.seed + 6)
+        self.worst = {}
+
+    # -- helpers ---------------------------------------------------------
+    def checked(self, ticker, label, skip=(), **kw):
+        """One tick through ``ticker`` whose sampled scores must be
+        within 5e-3 of batch jsdist_tilde of the mirrors' graphs."""
+        np, fleet = self.np, ticker.fleet
+        names = [n for n in self.sampled if n in fleet.directory
+                 and n not in skip]
+        before = self.tenants.snapshot(names)
+        deltas, scores = ticker.run(**kw)
+        if not all(np.isfinite(v) for v in scores.values()):
+            raise AssertionError(f"{label}: non-finite scores")
+        self.worst[label] = self.tenants.worst(names, before, scores,
+                                               self.dev)
+        if self.worst[label] > 5e-3:
+            raise AssertionError(
+                f"{label}: sampled scores differ from batch jsdist_tilde "
+                f"by {self.worst[label]:.3e} > 5e-3")
+        return deltas, scores
+
+    def timed(self, fn):
+        """``fn()`` and its seconds to a synchronize."""
+        t0 = time.perf_counter()
+        res = fn()
+        self.torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # -- admission -------------------------------------------------------
+    def admit_all(self) -> None:
+        """Open the fleet and admit every tenant, each checked to land in
+        its best-fit pool by an independent count of the pools."""
+        from repro_torch.fleet import FingerFleet
+        from repro_torch.graphs.types import EdgeList
+
+        tenants, torch = self.tenants, self.torch
+        fleet, open_s = self.timed(lambda: FingerFleet.open(
+            fleet_config(str(self.root / "a")), device=self.dev))
+        caps = [p.capacity for p in fleet.config.pools]
+        counts = [0] * len(caps)
+
+        def admit(name, graph):
+            n = int(graph.n_nodes)
+            want = next(i for i, p in enumerate(fleet.config.pools)
+                        if n <= p.n_pad and counts[i] < caps[i])
+            entry = fleet.admit(name, graph)
+            if entry.pool != want:
+                raise AssertionError(f"tenant {name} of {n} nodes placed "
+                                     f"in pool {entry.pool}, best fit {want}")
+            counts[want] += 1
+
+        graph_s = [0.0]
+
+        def admit_pool(key):
+            """Seconds in `admit` (the graphs are made one at a time,
+            timed apart)."""
+            spent = 0.0
+            for b in range(tenants.mirrors[key].b):
+                t0 = time.perf_counter()
+                graph = tenants.graph(key, b)
+                t1 = time.perf_counter()
+                admit(tenants.name(key, b), graph)
+                spent += time.perf_counter() - t1
+                graph_s[0] += t1 - t0
+            torch.cuda.synchronize()
+            return spent
+
+        admit_s = {key: admit_pool(key) for key in ("small", "large")}
+        # fill the large pool, so that the spill tenant overflows into
+        # the sparse bucket; the fillers leave before the first tick
+        fillers = [f"f{i}" for i in range(caps[1] - counts[1])]
+        filler = EdgeList.from_arrays([0], [1], [1.0],
+                                      n_nodes=FLEET_POOLS[0][1] + 1)
+        t0 = time.perf_counter()
+        for name in fillers:
+            admit(name, filler)
+        fill_s = time.perf_counter() - t0
+        admit_s["virtual"] = admit_pool("virtual")
+        t0 = time.perf_counter()
+        for name in fillers:
+            fleet.evict(name)
+        fill_s += time.perf_counter() - t0
+        self.spill = tenants.name("virtual", tenants.SPILL)
+        print(f"  opened pools {[(p.name, p.n_pad, p.shards, p.streams_per_shard, p.method) for p in fleet.config.pools]}, "
+              f"k_pad={K_PAD} j_pad={J_PAD} exact_smax: mirrors "
+              f"{self.mirrors_s:.1f} s, open {open_s:.1f} s, the tenants' "
+              f"graphs {graph_s[0]:.1f} s")
+        for (key, s), n in zip(admit_s.items(), FLEET_TENANTS):
+            print(f"  admitted {n} {key} tenants in {s:.2f} s, "
+                  f"{s / n * 1e3:.3f} ms a tenant, each in its best-fit "
+                  "pool")
+        print(f"  {len(fillers)} fillers of the large pool admitted and "
+              f"evicted in {fill_s:.2f} s; the spill tenant {self.spill} "
+              f"({N_PAD} ids) placed in pool "
+              f"{fleet.directory.get(self.spill).pool} while large was full")
+        self.fleet = fleet
+        self.ticker = FleetTicker(torch, fleet, tenants, self.dev)
+
+    def choose(self) -> None:
+        """The planted, grown, sampled tenants and the shards of the
+        events."""
+        np, rng, tenants = self.np, self.rng, self.tenants
+        fleet = self.fleet
+        b = {k: m.b for k, m in tenants.mirrors.items()}
+        self.planted_rows = {
+            "small": sorted(int(x) for x in rng.choice(b["small"], 2,
+                                                       replace=False)),
+            "large": [int(rng.integers(b["large"]))],
+            "virtual": [int(rng.integers(1, b["virtual"]))]}
+        self.planted = sorted(tenants.name(k, r) for k, rows in
+                              self.planted_rows.items() for r in rows)
+        n_u = tenants.mirrors["small"].n_u
+        big = [x for x in np.flatnonzero(n_u > FLEET_POOLS[0][1] - J_PAD)
+               if x not in self.planted_rows["small"]]
+        self.grow_rows = sorted(int(x) for x in rng.choice(
+            big, FLEET_GROWN, replace=False))
+        self.kill_shard, self.compact_shard = 2, 3
+        dead = [e.name for e in fleet.directory.tenants_on(0, 2)]
+        sampled = set(self.planted) | {self.spill} \
+            | {tenants.name("small", x) for x in self.grow_rows[:2]} \
+            | set(rng.choice(dead, 8, replace=False).tolist())
+        for key, count in (("small", 16), ("large", 20), ("virtual", 14)):
+            sampled |= {tenants.name(key, int(x)) for x in
+                        rng.choice(b[key], count, replace=False)}
+        self.sampled = sorted(sampled)
+
+    # -- the steady ticks --------------------------------------------------
+    def steady(self, out) -> None:
+        """FLEET_TICKS ticks of the phase-3 mix, bursts planted on the
+        last; the stacked inputs of tick FLEET_TICKS // 2 are kept for
+        the kernels line."""
+        from repro_torch.fleet import pooltick
+
+        torch, ticker = self.torch, self.ticker
+        captured = {}
+        stack_states, stack_deltas = pooltick.stack_states, \
+            pooltick.stack_deltas
+
+        def capture_states(seq):
+            st = stack_states(seq)
+            captured.setdefault(("states", tuple(st.strengths.shape)),
+                                st.map_tensors(torch.clone))
+            return st
+
+        def capture_deltas(seq, device):
+            d = stack_deltas(seq, device)
+            captured.setdefault(("deltas", tuple(d.dw.shape)), d)
+            return d
+
+        for t in range(FLEET_TICKS):
+            if t == FLEET_TICKS // 2:
+                pooltick.stack_states = capture_states
+                pooltick.stack_deltas = capture_deltas
+            try:
+                if t == FLEET_TICKS - 1:
+                    self.checked(ticker, "steady", burst=self.planted_rows)
+                else:
+                    ticker.run()
+            finally:
+                pooltick.stack_states = stack_states
+                pooltick.stack_deltas = stack_deltas
+            ticker.expect(f"steady tick {t}", stacked=2)
+        top = [n for n, _ in self.fleet.top_anomalies(4)]
+        if sorted(top) != self.planted:
+            raise AssertionError(f"fleet top-4 {top} != planted "
+                                 f"{self.planted}")
+        out["fleet_snaps"] = captured
+        report_ticks("steady, stacked", ticker.log[1:], self.fleet)
+        print(f"  top-4 {top} == planted {self.planted}; "
+              f"{len(self.sampled)} sampled scores vs batch jsdist_tilde: "
+              f"max |diff| {self.worst['steady']:.3e} (bound 5e-3)")
+
+    # -- the events --------------------------------------------------------
+    def growth_and_spill(self) -> None:
+        """8 small tenants join 8 fresh ids each and outgrow 256:
+        `ensure_capacity` promotes them live during `ingest`; then the
+        spill tenant moves sparse → dense into ``large``."""
+        np, torch, fleet, tenants = self.np, self.torch, self.fleet, \
+            self.tenants
+        pauses = []
+        promote = fleet.rebalancer.promote
+
+        def timed_promote(*a, **kw):
+            report, s = self.timed(lambda: promote(*a, **kw))
+            pauses.append(s)
+            return report
+
+        fleet.rebalancer.promote = timed_promote
+        try:
+            self.checked(self.ticker, "growth", grow=self.grow_rows)
+        finally:
+            del fleet.rebalancer.promote
+        moved = [fleet.directory.get(tenants.name("small", b)).pool
+                 for b in self.grow_rows]
+        if moved != [1] * FLEET_GROWN or len(pauses) != FLEET_GROWN:
+            raise AssertionError(f"grown tenants in pools {moved} after "
+                                 f"{len(pauses)} promotions")
+        self.ticker.expect("growth tick", stacked=2)
+        _, spill_s = self.timed(
+            lambda: fleet.promote(self.spill, to_pool="large"))
+        self.checked(self.ticker, "spill promotion")
+        if fleet.directory.get(self.spill).pool != 1:
+            raise AssertionError("the spill tenant did not move to large")
+        self.ticker.expect("spill tick", stacked=2)
+        print(f"  growth tick: {FLEET_GROWN} small tenants promoted live by "
+              f"ensure_capacity, pauses median "
+              f"{np.median(pauses) * 1e3:.2f} ms (max "
+              f"{max(pauses) * 1e3:.2f}); promote({self.spill!r}, 'large') "
+              f"sparse→dense {spill_s * 1e3:.2f} ms; sampled max |diff| "
+              f"{self.worst['growth']:.3e}, "
+              f"{self.worst['spill promotion']:.3e}")
+
+    def compaction(self) -> None:
+        """Evict the tenants of one small shard whose mirror has a node
+        active at or above half its layout, then `rebalance()` under a
+        staged tick: the shard compacts and ticks in a group of its own
+        (its staying tenants send an empty delta that tick)."""
+        np, fleet, tenants = self.np, self.fleet, self.tenants
+        small = tenants.mirrors["small"]
+        half = FLEET_POOLS[0][1] // 2
+        keep, evict = [], []
+        for e in fleet.directory.tenants_on(0, self.compact_shard):
+            b = tenants.row(e.name)[1]
+            top = int(np.flatnonzero(small.active[b]).max())
+            (keep if top < half - 1 else evict).append(e.name)
+        if not keep:
+            raise AssertionError("no tenant stays on the compacted shard")
+        _, evict_s = self.timed(lambda: [fleet.evict(n) for n in evict])
+        self.sampled = [n for n in self.sampled if n not in evict] \
+            + keep[:2]
+        actions = []
+
+        def rebalance():
+            res, s = self.timed(fleet.rebalance)
+            actions.extend(res)
+            actions.append(s)
+
+        self.checked(self.ticker, "compaction", staged=rebalance,
+                     quiet=[tenants.row(n)[1] for n in keep])
+        compact_s = actions.pop()
+        if [(a["pool"], a["shard"]) for a in actions] != \
+                [(0, self.compact_shard)] or actions[0]["new_n_pad"] >= half:
+            raise AssertionError(f"rebalance: {actions}")
+        self.ticker.expect("compaction tick", stacked=3)
+        self.checked(self.ticker, "after compaction")
+        self.ticker.expect("tick after the compaction", stacked=3)
+        print(f"  evicted {len(evict)} tenants of shard small/"
+              f"{self.compact_shard} in {evict_s * 1e3:.1f} ms ({len(keep)} "
+              f"stay); rebalance() under a staged tick compacted it "
+              f"{actions[0]['old_n_pad']} → {actions[0]['new_n_pad']} in "
+              f"{compact_s * 1e3:.2f} ms; then "
+              f"{self.ticker.log[-1]['poll_launches']} launches a tick; "
+              f"sampled max |diff| {self.worst['compaction']:.3e}, "
+              f"{self.worst['after compaction']:.3e}")
+
+    def save_restore(self) -> None:
+        """Save the fleet; restore it twice (stacked, and shard by shard
+        from a copy of the directory), each bit-equal with the saved
+        state; FLEET_RESTORED_TICKS ticks through both, bit-equal."""
+        import shutil
+
+        from repro_torch.fleet import FingerFleet
+
+        torch, tenants = self.torch, self.tenants
+        _, save_s = self.timed(self.fleet.save)
+        saved = fleet_bits(torch, self.fleet)
+        self.fleet.close()
+        shutil.copytree(self.root / "a", self.root / "b")
+        fleets, restore_s = {}, {}
+        for key, stacked in (("a", True), ("b", False)):
+            fleets[key], restore_s[key] = self.timed(
+                lambda: FingerFleet.restore(
+                    fleet_config(str(self.root / key), stacked),
+                    device=self.dev))
+            check_fleet_bits(f"restore {key}", saved,
+                             fleet_bits(torch, fleets[key]))
+        tickers = {k: FleetTicker(torch, f, tenants, self.dev)
+                   for k, f in fleets.items()}
+        live = set(fleets["a"].directory.names())
+        for t in range(FLEET_RESTORED_TICKS):
+            deltas, _ = self.checked(tickers["a"], f"restored {t}")
+            tickers["a"].expect(f"restored tick {t}", stacked=3)
+            tickers["b"].run(deltas=deltas)
+            tickers["b"].expect(f"restored tick {t}, shard by shard",
+                                stacked=0, sparse_stacked=0,
+                                single=FLEET_POOLS[0][2] + FLEET_POOLS[1][2],
+                                sparse_single=FLEET_POOLS[2][2])
+            check_fleet_bits(f"restored tick {t}",
+                             fleet_bits(torch, fleets["a"]),
+                             fleet_bits(torch, fleets["b"]))
+        if live != set(fleets["b"].directory.names()):
+            raise AssertionError("the two restores hold different tenants")
+        print(f"  save {save_s:.2f} s ({len(live)} tenants, "
+              f"{sum(p.shards for p in fleets['a'].config.pools)} shard "
+              f"checkpoints and fleet.json); restore stacked "
+              f"{restore_s['a']:.2f} s, shard by shard {restore_s['b']:.2f} "
+              "s, both bit-equal with the saved state")
+        report_ticks("restored, stacked", tickers["a"].log, fleets["a"])
+        report_ticks("restored, shard by shard", tickers["b"].log,
+                     fleets["b"])
+        print(f"  {FLEET_RESTORED_TICKS} ticks through both restores "
+              "bit-equal (scores and every shard's state); sampled max "
+              "|diff| " + ", ".join(f"{self.worst[f'restored {t}']:.3e}"
+                                    for t in range(FLEET_RESTORED_TICKS)))
+        fleets["b"].close()
+        self.fleet = fleets["a"]
+        self.ticker = tickers["a"]
+
+    def kill_recover(self) -> None:
+        """Kill one small shard of the restored fleet, one WAL-only tick,
+        then recovery from the shard's checkpoint and the WAL since the
+        save."""
+        fleet, shard = self.fleet, self.kill_shard
+        dead = {e.name for e in fleet.directory.tenants_on(0, shard)}
+        _, kill_s = self.timed(lambda: fleet.kill_shard("small", shard))
+        self.checked(self.ticker, "WAL-only", skip=dead)
+        self.ticker.expect("WAL-only tick", stacked=3)
+        reports, recover_s = self.timed(fleet.recover)
+        if {r["tenant"] for r in reports} != dead:
+            raise AssertionError("recover() did not rebuild every tenant "
+                                 "of the dead shard")
+        self.checked(self.ticker, "recovered")
+        self.ticker.expect("tick after recovery", stacked=3)
+        print(f"  kill_shard('small', {shard}) {kill_s * 1e3:.1f} ms; a "
+              f"WAL-only tick; recover() rebuilt {len(reports)} tenants from "
+              f"the shard's checkpoint and their WAL in {recover_s:.2f} s "
+              f"({recover_s / len(reports) * 1e3:.2f} ms a tenant); sampled "
+              f"max |diff| {self.worst['WAL-only']:.3e}, "
+              f"{self.worst['recovered']:.3e}")
+
+
+def report_ticks(label, log, fleet) -> None:
+    """The medians of a run of fleet ticks."""
+    import numpy as np
+
+    streams = sum(p.capacity for p in fleet.config.pools)
+    med = {k: float(np.median([r[k] for r in log]))
+           for k in ("ingest_ms", "poll_host_ms", "poll_cuda_ms",
+                     "scores_ms", "wall_ms")}
+    print(f"  {label}, {len(log)} ticks (medians): host ingest "
+          f"{med['ingest_ms']:.1f} ms, poll {med['poll_host_ms']:.3f} ms host "
+          f"/ {med['poll_cuda_ms']:.3f} ms CUDA events, scores "
+          f"{med['scores_ms']:.1f} ms; the loop (ingest + poll + scores) "
+          f"{med['wall_ms']:.1f} ms a tick, {streams / med['wall_ms'] * 1e3:.4g} "
+          f"stream-ticks/s ({len(fleet.directory)} tenants in {streams} "
+          f"slots), {log[-1]['poll_launches']} launches a poll")
+
+
+def phase_fleet(args, torch, out, dev):
+    """Phase 8: the multi-tenant fleet through the pool-stacked ticks."""
+    import shutil
+
+    ph = FleetPhase(args, torch, dev)
+    zero_counts()
+    ph.admit_all()
+    ph.choose()
+    ph.steady(out)
+    ph.growth_and_spill()
+    ph.compaction()
+    ph.save_restore()
+    ph.kill_recover()
+    ph.fleet.close()
+    shutil.rmtree(ph.root, ignore_errors=True)
+    got = read_counts(out)
+    print(f"  launches on the fleet path: {got}")
+    if not (got["stream_tick_stacked"] and got["sparse_tick_stacked"]):
+        raise AssertionError("a stacked kernel was never launched on the "
+                             "fleet path")
+
+
+def fleet_rows(torch, out):
+    """The stacked rows of the kernels line, each timed in place on a
+    copy of a fleet tick's stacked state and delta (the large and the
+    virtual pool's groups), and each group's stack and unstack timed
+    apart from the kernel."""
+    from repro_torch.fleet import pooltick
+    from repro_torch.kernels.sparse_tick import ops as sp_ops
+    from repro_torch.kernels.sparse_tick import parity as sp_parity
+    from repro_torch.kernels.sparse_tick.ref import sparse_tick_ref
+    from repro_torch.kernels.stream_tick import ops as st_ops
+    from repro_torch.kernels.stream_tick import parity as st_parity
+    from repro_torch.kernels.stream_tick.ref import stream_tick_ref
+
+    snaps = out.pop("fleet_snaps")
+    errs, rows = out["errs"], []
+    shapes = {"stream_tick_stacked": (FLEET_POOLS[1][2], FLEET_POOLS[1][3],
+                                      FLEET_POOLS[1][1]),
+              "sparse_tick_stacked": (FLEET_POOLS[2][2], FLEET_POOLS[2][3],
+                                      SP_SLOTS)}
+    for name, (s, b, n) in shapes.items():
+        sparse = name == "sparse_tick_stacked"
+        snap = snaps[("states", (s, b, n))]
+        deltas = snaps[("deltas", (s, b, K_PAD))]
+        fn = sp_ops.sparse_tick_fused_stacked if sparse \
+            else st_ops.stream_tick_fused_stacked
+        ref = sparse_tick_ref if sparse else stream_tick_ref
+        parity = sp_parity if sparse else st_parity
+        work = snap.map_tensors(torch.clone)
+
+        def restore(work=work, snap=snap):
+            for f, x in work.tensors().items():
+                x.copy_(getattr(snap, f))
+
+        want = ref(snap, deltas, exact_smax=True)
+        got = fn(work, deltas, exact_smax=True, inplace=True)
+        errs[name] = max(errs[name], parity.compare(got, want, name))
+        if sparse:
+            bound_bytes = sparse_bytes(snap, work, deltas)[0]
+        else:
+            k, j = deltas.dw.shape[-1], deltas.node_ids.shape[-1]
+            changed = int((work.strengths != snap.strengths).sum()) \
+                + int((work.node_mask != snap.node_mask).sum())
+            # read: 3 scalars, the strength and mask rows, the delta;
+            # written: dist, 3 scalars and the elements that change
+            bound_bytes = s * b * (4 * 3 + 8 * n + 20 * k + 8 * j) \
+                + s * b * 16 + 4 * changed
+        del got, want
+        ms = cuda_ms(lambda: fn(work, deltas, exact_smax=True,
+                                inplace=True), 50, setup=restore)
+        plain = cuda_ms(lambda: ref(snap, deltas, exact_smax=True), 5)
+        # the group's stack and unstack apart from the kernel: S shard
+        # states and queued deltas of their own, as the pool tick gets
+        states_seq = [snap.map_tensors(lambda x, i=i: x[i].clone())
+                      for i in range(s)]
+        deltas_seq = [deltas.map_tensors(lambda x, i=i: x[i].clone())
+                      for i in range(s)]
+        dev = snap.q.device
+        stack_ms = cuda_ms(lambda: (pooltick.stack_states(states_seq),
+                                    pooltick.stack_deltas(deltas_seq, dev)),
+                           20)
+        dists = torch.zeros((s, b), device=dev)
+        t0 = time.perf_counter()
+        for _ in range(100):
+            pooltick.unstack(dists, work, s)
+        unstack_ms = (time.perf_counter() - t0) * 10
+        print(f"  {name} S,B,n,k={(s, b, n, K_PAD)}: in place {ms:.4f} ms "
+              f"(bound {bound_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms, "
+              f"{bound_bytes} B); the group's stack of its {s} shards' "
+              f"states and deltas {stack_ms:.4f} ms (CUDA events), its "
+              f"unstack into views {unstack_ms:.4f} ms of host time")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/"
+                      + ("sparse_tick.cu" if sparse else "stream_tick.cu"),
+            "replaces": ("src/repro/kernels/sparse_tick/kernel.py:251"
+                         if sparse else
+                         "src/repro/kernels/stream_tick/kernel.py:242"),
+            "launches": out["launches"][name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+            "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+            "stack_ms": stack_ms, "unstack_host_ms": unstack_ms})
+        print_row(rows[-1])
+        del work, states_seq, deltas_seq
+    return rows
+
+
 def print_row(r: dict) -> None:
     """One kernel's row of the kernels line, for a reader."""
     floor = f", one empty launch {r['empty_launch_ms']:.4f} ms" \
@@ -2372,8 +3130,6 @@ def main() -> int:
         start("sparse timing", "sparse_tick times at the sparse path's "
                                "shapes and inputs:")
         rows += sparse_rows(torch, out)
-        out.pop("sparse_snap")
-        out.pop("sparse_stacked")
         start("train", "phase 6 train path (launch.train.run, FINGER "
                        "telemetry):")
         phase_train(args, torch, out, dev)
@@ -2386,6 +3142,14 @@ def main() -> int:
         start("offline timing", "bsr_matvec times at the offline path's "
                                 "inputs:")
         rows += offline_rows(torch, out, dev)
+        start("fleet", "phase 8 fleet path (FingerFleet: two fused_tick "
+                       "pools and a sparse_tick pool, pool-stacked ticks):")
+        phase_fleet(args, torch, out, dev)
+        start("fleet timing", "stacked tick times at the fleet path's "
+                              "shapes and inputs:")
+        rows += fleet_rows(torch, out)
+        for r in rows:  # rows built before a later path count it too
+            r["launches"] = out["launches"][r["name"]]
         start("done", "")
     except Exception:  # report the phase, then fail the run
         traceback.print_exc()

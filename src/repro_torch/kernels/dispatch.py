@@ -23,6 +23,15 @@ The kernel wrappers take their plain PyTorch version only for tensors
 that lie on the CPU, which is how the CPU tests run; for a CUDA tensor
 they launch the kernel or raise.
 
+Shard-stacked launches (the fleet's pool tick) add an admission guard,
+the counterpart of the reference's: ``stacked_residency_bytes_ok``
+holds the whole S-stacked operand set of one launch against
+``stacked_budget_bytes()`` (256 MB unless ``REPRO_STACKED_BUDGET_BYTES``
+says otherwise, read once at import, as the reference reads it), and
+``smem_fits`` is the per-block shared-memory fit the reference checks
+as a per-grid-step VMEM fit, answered without raising. A group that
+fails either ticks shard by shard.
+
 Build flags: ``-gencode arch=compute_90a,code=sm_90a -O3`` plus
 ``--fmad=false``. The scores are the square root of a difference of
 entropies that is about 0 on an unchanged stream, so contracting
@@ -247,6 +256,37 @@ def check_smem(name: str, k: int, j: int, device: torch.device) -> None:
         raise ValueError(
             f"{name}: k_pad={k}, j_pad={j} need {need} bytes of shared "
             f"memory per block, above the card's {limit}")
+
+
+def smem_fits(name: str, k: int, j: int, device: Device = None) -> bool:
+    """Whether a block of the tick kernel ``name`` fits the card's
+    shared memory for k edge lanes and j node slots (`check_smem`
+    without the raise). On the CPU the plain version runs, which has no
+    such limit."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return True
+    return smem_bytes(name, k, j) <= smem_limit(name, device)
+
+
+DEFAULT_STACKED_BUDGET_BYTES = 256 * 1024 * 1024
+
+_env = os.environ.get("REPRO_STACKED_BUDGET_BYTES")
+_BASE_STACKED_BUDGET_BYTES = int(_env) if _env \
+    else DEFAULT_STACKED_BUDGET_BYTES
+del _env
+
+
+def stacked_budget_bytes() -> int:
+    """Device-residency budget of one shard-stacked launch's operands
+    (see the module docstring)."""
+    return _BASE_STACKED_BUDGET_BYTES
+
+
+def stacked_residency_bytes_ok(total_bytes: int) -> bool:
+    """Whether a stacked launch's operands fit the stacked budget; a
+    group that does not ticks shard by shard."""
+    return int(total_bytes) <= stacked_budget_bytes()
 
 
 def check_operands(name: str, device: torch.device, operands) -> None:

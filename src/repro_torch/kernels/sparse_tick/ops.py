@@ -24,6 +24,9 @@ lane multiples and the per-edge payloads are not tiled onto endpoints
 state's tensors, as `stream_tick_fused` does, and returns a state over
 the same tensors.
 
+`fits_sparse_tick_stacked` is the fleet's admission check of one
+stacked launch (shared memory and the residency budget).
+
 ``LAUNCHES`` counts kernel launches by entry point (never plain-version
 calls): ``sparse_tick`` for `sparse_tick_fused`, ``sparse_tick_stacked``
 for `sparse_tick_fused_stacked`.
@@ -31,7 +34,7 @@ for `sparse_tick_fused_stacked`.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -46,6 +49,30 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SCALARS = ("q", "s_total", "s_max")
 _ROWS = ("strengths", "node_mask")
 _STATE_FIELDS = _SCALARS + _ROWS + ("edge_weights",)
+
+
+def sparse_tick_stacked_bytes(s: int, b: int, n_slots: int, m_pad: int,
+                              k_pad: int, j_pad: Optional[int]) -> int:
+    """Device-resident operand bytes of one in-place shard-stacked
+    launch over S shards of B streams: the state (3 scalars, the
+    strength and mask rows and the (m_pad,) edge store, written in
+    place), the delta's 5 lanes and its edge slots, the node slots and
+    the (S, B) scores. Nothing is padded (the reference's count pads to
+    TPU lanes)."""
+    per_row = 4 * (4 + 2 * n_slots + m_pad + 6 * k_pad + 2 * (j_pad or 0))
+    return s * b * per_row
+
+
+def fits_sparse_tick_stacked(s: int, b: int, n_slots: int, m_pad: int,
+                             k_pad: int, j_pad: Optional[int],
+                             device: dispatch.Device = None) -> bool:
+    """Stacked-launch admission on ``device``: a block's shared memory
+    fits (stacking leaves it unchanged) and the S-stacked operands fit
+    `dispatch.stacked_budget_bytes()`. A failing group ticks shard by
+    shard."""
+    return dispatch.smem_fits("sparse_tick", k_pad, j_pad or 0, device) \
+        and dispatch.stacked_residency_bytes_ok(
+            sparse_tick_stacked_bytes(s, b, n_slots, m_pad, k_pad, j_pad))
 
 
 def _check_slot_space(states: SparseStreamState,

@@ -20,6 +20,9 @@ counterpart of JAX's donation; the kernel completes every gather from
 a row before its first write to it, and writes only the elements whose
 value changes) and returns a state over the same tensors.
 
+`fits_fused_tick_stacked` is the fleet's admission check of one
+stacked launch (shared memory and the residency budget).
+
 ``LAUNCHES`` counts kernel launches by entry point (never plain-version
 calls): ``stream_tick`` for `stream_tick_fused`, ``stream_tick_stacked``
 for `stream_tick_fused_stacked`.
@@ -27,7 +30,7 @@ for `stream_tick_fused_stacked`.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -51,6 +54,29 @@ def stream_tick_smem_bytes(k: int, j: int) -> int:
 def stream_tick_smem_limit(device: torch.device) -> int:
     """The card's shared memory per block, with the opt-in above 48 KB."""
     return dispatch.smem_limit("stream_tick", device)
+
+
+def fused_tick_stacked_bytes(s: int, b: int, n_pad: int, k_pad: int,
+                             j_pad: Optional[int]) -> int:
+    """Device-resident operand bytes of one in-place shard-stacked
+    launch over S shards of B streams: the state (3 scalars, the
+    strength and mask rows, written in place), the delta's 5 lanes, the
+    node slots and the (S, B) scores. Nothing is padded (the
+    reference's count pads to TPU lanes)."""
+    per_row = 4 * (4 + 2 * n_pad + 5 * k_pad + 2 * (j_pad or 0))
+    return s * b * per_row
+
+
+def fits_fused_tick_stacked(s: int, b: int, n_pad: int, k_pad: int,
+                            j_pad: Optional[int],
+                            device: dispatch.Device = None) -> bool:
+    """Stacked-launch admission on ``device``: a block's shared memory
+    fits (stacking leaves it unchanged) and the S-stacked operands fit
+    `dispatch.stacked_budget_bytes()`. A failing group ticks shard by
+    shard."""
+    return dispatch.smem_fits("stream_tick", k_pad, j_pad or 0, device) \
+        and dispatch.stacked_residency_bytes_ok(
+            fused_tick_stacked_bytes(s, b, n_pad, k_pad, j_pad))
 
 
 def _check_layout(name: str, states: FingerState, deltas: GraphDelta):

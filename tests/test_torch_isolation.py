@@ -73,7 +73,11 @@ def test_import_every_submodule_loads_no_jax_and_no_repro():
               "repro_torch.graphs.spectral", "repro_torch.graphs.streams",
               "repro_torch.core.bounds", "repro_torch.core.directed",
               "repro_torch.core.higher_order",
-              "repro_torch.baselines.deltacon")
+              "repro_torch.baselines.deltacon", "repro_torch.fleet",
+              "repro_torch.fleet.config", "repro_torch.fleet.directory",
+              "repro_torch.fleet.errors", "repro_torch.fleet.fleet",
+              "repro_torch.fleet.pooltick", "repro_torch.fleet.rebalance",
+              "repro_torch.fleet.recovery", "repro_torch.fleet.router")
     assert set(ported) <= set(names)
     code = ("import importlib, sys\n"
             f"for m in {names!r}: importlib.import_module(m)\n"
@@ -146,6 +150,17 @@ def test_cuda_requests_raise_without_cuda(monkeypatch):
                            method="sparse_tick", n_slots=8, m_pad=32)
     with pytest.raises(RuntimeError, match="is_available"):
         FingerService.open(sparse, iter([g]))
+    from repro_torch.fleet import (FingerFleet, FleetConfig, PoolSpec,
+                                   replay_tenant)
+
+    fleet_cfg = FleetConfig(pools=(PoolSpec(name="p", n_pad=8, k_pad=2),))
+    with pytest.raises(RuntimeError, match="is_available"):
+        FingerFleet.open(fleet_cfg)  # the default is CUDA
+    base = {"q": 1.0, "s_total": 0.0, "s_max": 0.0,
+            "strengths": np.zeros(4, np.float32),
+            "node_mask": np.ones(4, np.float32)}
+    with pytest.raises(RuntimeError, match="is_available"):
+        replay_tenant(base, [], 0, exact_smax=False)
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.launch.train import run
@@ -214,6 +229,16 @@ def test_cpu_tensors_run_the_plain_versions_without_launches():
     m, x = bs_parity.make_case(300, 128, seed=0, device="cpu")
     bs_ops.bsr_matvec(m, x)
     bs_ops.power_iteration_lmax_bsr(m, num_iters=5)
+    from repro_torch.fleet import FingerFleet, FleetConfig, PoolSpec
+
+    for method, extra in (("fused_tick", {}),
+                          ("sparse_tick", dict(n_slots=8, m_pad=16))):
+        with FingerFleet.open(FleetConfig(pools=(PoolSpec(
+                name="p", n_pad=8, shards=2, streams_per_shard=2, k_pad=2,
+                j_pad=2, method=method, **extra),)), device="cpu") as fleet:
+            fleet.admit("t", erdos_renyi(6, 0.5, seed=0, weighted=True))
+            fleet.poll()  # one stacked tick of both shards, plain on CPU
+            assert fleet.last_poll_launches == 1
     assert (st_ops.LAUNCHES, ds_ops.LAUNCHES, sp_ops.LAUNCHES,
             vq_ops.LAUNCHES, ep_ops.LAUNCHES, bs_ops.LAUNCHES) == before
 
