@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed S] [--batch B]
 
 Run from the root of a checkout; it imports `repro_torch` from
-``src/`` and never JAX or the JAX package. Eight phases, each printing a
+``src/`` and never JAX or the JAX package. Nine phases, each printing a
 line of its own; any failure exits non-zero:
 
 1. build   — the hand-written kernels from ``src/repro_torch/csrc/``,
@@ -137,8 +137,8 @@ line of its own; any failure exits non-zero:
              ``TRAIN_CKPT_LAYERS`` = 2 layers: cut from all 8, whose
              one-thread zlib write took 175–210 s, to pay for phase 8),
              the key/value projections, router and norm weights with
-             their moments and step restores bit-identical on the card
-             (seconds printed); a second run from the same seed repeats
+             their moments and step is saved (seconds printed; phase 9
+             restores it); a second run from the same seed repeats
              every loss bit for bit.
 7. offline — the offline spectral path: a planted partition of n = 2¹⁸
              nodes in 256 contiguous communities (mean degree 16 inside,
@@ -196,12 +196,56 @@ line of its own; any failure exits non-zero:
              ingest, poll (host and CUDA events) and scores times and
              the loop's stream-ticks/s stacked and shard by shard, and
              every event's pause.
+9. sharded — the sharded placements, on logical shards of the one card
+             (``SHARDS`` = 4 on ``cuda:0``; multipod ``PODS`` = 2 × 2).
+             Phase 3's first checkpoint (B = 32768, n_pad 1024, k_pad 128,
+             j_pad 8, ``fused_tick``, exact s_max) restored three ways,
+             local, ``placement="sharded"`` over a 4-shard `DeviceGrid`
+             and ``"multipod"`` over 2 × 2, all double-buffered, fed the
+             ticks phase 3 fed after that checkpoint: its loop's
+             ``PH9_TICKS`` = 10, then `repad(2048)` and its traced pair
+             and its repad's tick (``PH9_REPAD_TICKS`` = 3). Checks after every tick:
+             scores bit-equal to local; the global top-4 equal in values
+             and ids; each pod's top-4 equal to the local top-4 over the
+             pod's streams; ``stream_tick`` launched once a tick local and
+             4 times a tick sharded and multipod (one a shard); the
+             states bit-equal at the end; the sharded service's `save`
+             restored as a local service, bit-equal. Prints each
+             placement's restore seconds, median `poll` (CUDA events),
+             median host ms of ingest to the poll's end (one tick at a
+             time) and stream-ticks/s, each shard's ``stream_tick`` time
+             in place (CUDA events, a copy of a tick's shard state
+             restored before every call), the sharded tick whole, and
+             the top-k merge's host and CUDA-event ms. Then phase 5's
+             checkpoint (B = 1024) restored ``sharded`` over
+             ``SP_SHARDS`` = 2 with ``method="sparse_tick"``, caught up
+             with the tick phase 5 ran after its save, and
+             ``PH9_SPARSE_TICKS`` = 3 more ticks beside phase 5's
+             restored local service: bit-equal (scores, state, every 64th
+             `SlotMap`'s JSON), ``sparse_tick`` launched twice a tick on
+             the sharded service. Then distributed FINGER on phase 7's G
+             (n = 2¹⁸, its coalesced edge list): at world size 1 under
+             NCCL in this process, and over ``DIST_RANKS`` = 2 gloo ranks
+             on ``cuda:0`` in processes of their own (this script with
+             ``--dist-rank``; NCCL refuses two ranks on one card), each
+             rank's `shard_edge_list`: q within 1e-5, s_total within
+             1e-6 relative and s_max within 1e-4 of the serial
+             `finger_state`, λ within 1e-4 relative of phase 7's
+             `power_iteration_lmax` from the same start vector, every
+             rank equal; prints the seconds per iteration and the share
+             of a second run spent in ``all_reduce``. Last, 2 more steps
+             of phase 6's training with ``compress_grads=True`` (phase
+             6's sound-step check: finite losses and norms, every leaf
+             moved, both moments nonzero, the step count; and nonzero
+             finite residuals), and `elastic_restore` of phase 6's
+             checkpoint onto the card from a CPU template, bit-identical
+             with a copy phase 6 took at its save.
 
 Each phase prints its seconds. Every wrapper's launch count is set to 0
 just before phases 3 (and again before its lifecycle part), 4, 5, 6,
-7 and 8 and read just after each path; a kernel's ``launches`` in the
-kernels line is the sum over those paths. Kernel times are CUDA-event means of the
-launch each path makes, at its shapes and inputs: ``stream_tick`` in
+7, 8 and each part of 9 and read just after each path; a kernel's
+``launches`` in the kernels line is the sum over those paths. Kernel
+times are CUDA-event means of the launch each path makes, at its shapes and inputs: ``stream_tick`` in
 place on a copy of a main-path tick's state restored before every call,
 ``sparse_tick`` in place (and out of place) on a copy of a sparse-path
 tick's state and slot-space delta, ``delta_stats`` as the whole
@@ -294,6 +338,13 @@ FLEET_POOLS = (("small", 256, 4, 2048, "fused_tick"),
 FLEET_TENANTS = (6144, 3072, 768)
 FLEET_TICKS, FLEET_RESTORED_TICKS = 10, 3
 FLEET_GROWN = 8  # small tenants grown past 256 nodes, promoted live
+# phase 9: logical shards on the one card (the sharded and multipod
+# placements of phase 3's state, sharded sparse serving), ticks, and the
+# gloo ranks of distributed FINGER
+SHARDS, PODS, SP_SHARDS, DIST_RANKS = 4, (2, 2), 2, 2
+# phase 9 feeds its placements the ticks phase 3 fed after its first
+# checkpoint: the loop's LOOP_T, then the traced pair and the repad's
+PH9_TICKS, PH9_REPAD_TICKS, PH9_SPARSE_TICKS = LOOP_T, 3, 3
 CHECKED = ("bsr_spmv", "delta_stats", "entropy_probe", "sparse_tick",
            "stream_tick", "vnge_q")
 SP_FIELDS = ("q", "s_total", "s_max", "strengths", "node_mask",
@@ -972,9 +1023,11 @@ def phase_serve(args, torch, out, dev):
 
 
 def state_bits(torch, svc, scores: bool = False) -> dict:
-    """The service's state (and its latest scores), on the host."""
+    """The service's state, gathered from its shards (and its latest
+    scores), on the host."""
     torch.cuda.synchronize()
-    bits = {k: v.cpu().numpy() for k, v in svc.states().tensors().items()}
+    bits = {k: v.numpy() for k, v in
+            svc.plan.gather(svc.states()).tensors().items()}
     if scores:
         bits["scores"] = svc.scores()
     return bits
@@ -1068,7 +1121,6 @@ def phase_serve_lifecycle(args, torch, out, dev, svc, fleet, planted,
             for mode, s in svcs.items()}
     tick_bytes = sum(t.numel() * t.element_size()
                      for t in ticks[0].tensors().values())
-    del ticks
     check_same("sync vs double_buffered after the loop",
                state_bits(torch, sy, True), state_bits(torch, db, True))
     steady = LOOP_T - cfg.max_queue - 1
@@ -1092,7 +1144,6 @@ def phase_serve_lifecycle(args, torch, out, dev, svc, fleet, planted,
         sy.ingest(d)
         sy.poll()
     traced_ticks(torch, db, pair)
-    del pair
     check_same("after the traced ticks", state_bits(torch, sy, True),
                state_bits(torch, db, True))
 
@@ -1114,7 +1165,10 @@ def phase_serve_lifecycle(args, torch, out, dev, svc, fleet, planted,
         s.poll()
         torch.cuda.synchronize()
         swap[mode] = ((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3)
-    del d1
+    # phase 9 restores checkpoint "a" and feeds it the ticks that
+    # followed it here: the loop's, the traced pair and the repad's
+    out["serve_a"] = (root / "a", ticks + pair + [d1], cfg)
+    del ticks, pair, d1
     if id(db.plan) not in warm_plans or id(sy.plan) in warm_plans:
         raise AssertionError("repad did not install the warmed plan on "
                              "the double-buffered service only")
@@ -1192,7 +1246,7 @@ def phase_serve_lifecycle(args, torch, out, dev, svc, fleet, planted,
           "the live state")
     for s in (sy, db, back):
         s.close()
-    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(root / "b", ignore_errors=True)
 
 
 def traced_ticks(torch, svc, deltas):
@@ -1493,14 +1547,16 @@ def phase_sparse(args, torch, out, dev):
           f"{gc_s['poll'] * 1e3:.1f} ms inside the 20 polls and "
           f"{gc_s['ingest'] * 1e3:.1f} ms inside the 20 ingests (which took "
           f"{sum(ingest_ms):.1f} ms)")
-    sparse_save_restore(torch, dev, svc, fleet, n_virtual)
+    sparse_save_restore(torch, dev, svc, fleet, n_virtual, out)
     svc.close()
 
 
-def sparse_save_restore(torch, dev, svc, fleet, n_virtual):
+def sparse_save_restore(torch, dev, svc, fleet, n_virtual, out):
     """Phase 5's end: save the sparse service and restore it (the
     `SlotMap` JSON equal, the state bit-equal), then one more tick on
-    both services, bit-equal (launched outside the path's count)."""
+    both services, bit-equal (launched outside the path's count). The
+    restored service, the checkpoint, the mirror and that tick's deltas
+    stay for phase 9."""
     import shutil
 
     from repro_torch.serving import FingerService
@@ -1538,8 +1594,7 @@ def sparse_save_restore(torch, dev, svc, fleet, n_virtual):
           f"{restore_s:.2f} s; every SlotMap equal field by field (the JSON "
           "of every 64th compared), state bit-equal, and one more tick "
           "bit-equal on both services")
-    back.close()
-    shutil.rmtree(root, ignore_errors=True)
+    out["sparse_live"] = (back, root, fleet, deltas, n_virtual)
 
 
 def sparse_bytes(before, after, deltas) -> tuple:
@@ -1733,7 +1788,6 @@ def kernel_rows(torch, out):
 
 def phase_train(args, torch, out, dev):
     """Phase 6: the training path with FINGER telemetry."""
-    import shutil
     import tempfile
 
     import numpy as np
@@ -1745,8 +1799,7 @@ def phase_train(args, torch, out, dev):
     from repro_torch.models.params import (flatten_names, init_params,
                                            map_tree)
     from repro_torch.optim.adamw import AdamWConfig, AdamWState, apply_update
-    from repro_torch.train.checkpoint import (restore_checkpoint,
-                                              save_checkpoint)
+    from repro_torch.train.checkpoint import save_checkpoint
     from repro_torch.train.telemetry import (attention_probe_logits,
                                              routing_graph)
 
@@ -1845,7 +1898,8 @@ def phase_train(args, torch, out, dev):
     # a checkpoint of the trained embedding and first expert stack
     # (w_gate of the first TRAIN_CKPT_LAYERS layers), the key/value
     # projections, router and norm weights, with their moments and the
-    # step, restores bit-identical on the card
+    # step; phase 9 restores it onto the card with elastic_restore from a
+    # CPU template and holds it to a copy taken here
     def part(tree):
         b = tree["blocks"]["L0"]
         return {"embed": tree["embed"], "final_norm": tree["final_norm"],
@@ -1861,29 +1915,18 @@ def phase_train(args, torch, out, dev):
     root = Path(__file__).resolve().parent / "build"
     root.mkdir(parents=True, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=root, prefix="train_ckpt_")
-    try:
-        c0 = time.perf_counter()
-        path = save_checkpoint(tmp, TRAIN_STEPS, tree,
-                               metadata={"arch": cfg.name})
-        c1 = time.perf_counter()
-        back, manifest = restore_checkpoint(path, tree)
-        torch.cuda.synchronize()
-        c2 = time.perf_counter()
-        on_disk = sum(f.stat().st_size for f in Path(path).iterdir())
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    a, b = flatten_names(tree), flatten_names(back)
-    if list(a) != list(b) or manifest["step"] != TRAIN_STEPS or not all(
-            b[k].device == a[k].device and torch.equal(a[k], b[k])
-            for k in a):
-        raise AssertionError("train path: the checkpoint did not restore "
-                             "bit-identical")
+    c0 = time.perf_counter()
+    path = save_checkpoint(tmp, TRAIN_STEPS, tree,
+                           metadata={"arch": cfg.name})
+    c1 = time.perf_counter()
+    on_disk = sum(f.stat().st_size for f in Path(path).iterdir())
+    a = flatten_names(tree)
     nbytes = sum(x.numel() * x.element_size() for x in a.values())
-    print(f"  checkpoint round trip of {len(a)} arrays ({nbytes / 1e9:.3f} "
-          f"GB, step {int(opt_state.step)}) bit-identical: save "
-          f"{c1 - c0:.1f} s, restore {c2 - c1:.1f} s, {on_disk / 1e9:.3f} "
-          f"GB on disk")
-    del tree, back, a, b
+    print(f"  checkpoint of {len(a)} arrays ({nbytes / 1e9:.3f} GB, step "
+          f"{int(opt_state.step)}) saved in {c1 - c0:.1f} s, "
+          f"{on_disk / 1e9:.3f} GB on disk (phase 9 restores it)")
+    saved = map_tree_leaves(tree, torch.clone)
+    del tree, a
 
     # determinism: a second run from the same seed repeats every loss
     again = [h["loss"] for h in train(lambda *a: None)[2]]
@@ -1902,6 +1945,8 @@ def phase_train(args, torch, out, dev):
           f"step split: forward {fwd_ms:.1f} ms, clip + AdamW update "
           f"{upd_ms:.1f} ms, backward with recompute (the rest of the "
           f"median step) {med - fwd_ms - upd_ms:.1f} ms")
+    # phase 9 continues training from here with gradient compression
+    out["train_state"] = (cfg, params, opt_state, path, saved)
     del params, opt_state, grads
     gc.collect()
     torch.cuda.empty_cache()
@@ -2131,6 +2176,8 @@ def phase_offline(args, torch, out, dev):
         lam_mf = power_iteration_lmax(g)
         h_mf = float(vnge_hat(g, lambda_max=lam_mf))
         lam_mf = float(lam_mf)
+        if name == "G":  # phase 9 shards this edge list
+            out["dist_G"] = (g, lam_mf)
         x = torch.randn(m.n, generator=torch.Generator().manual_seed(1)) \
             .to(dev)
         order = bs_ops.stripe_order(m.counts, m.col_ids.shape[1])
@@ -3056,6 +3103,539 @@ def fleet_rows(torch, out):
     return rows
 
 
+def map_tree_leaves(tree, fn):
+    """``fn`` on every tensor of a tree of dicts and NamedTuples."""
+    if isinstance(tree, dict):
+        return {k: map_tree_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_tree_leaves(v, fn) for v in tree))
+    return fn(tree)
+
+
+def phase_sharded(args, torch, out, dev):
+    """Phase 9: the sharded and multipod placements against the local
+    one, sharded sparse serving, distributed FINGER and gradient
+    compression with an elastic restore."""
+    took = []
+
+    def part(name, fn, *fn_args):
+        t0 = time.perf_counter()
+        fn(*fn_args)
+        took.append(f"{name} {time.perf_counter() - t0:.1f} s")
+
+    part("placements", sharded_serve, args, torch, out, dev)
+    # the gloo ranks start up (imports, CUDA, the graph, the process
+    # group) while the sparse part runs, and wait for a go from part 3
+    root, procs = start_gloo_ranks(out)
+    try:
+        part("sparse", sharded_sparse, torch, out, dev)
+        part("distributed FINGER", dist_finger_phase, torch, out, dev,
+             root, procs)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:  # a part failed before the go
+                proc.kill()
+                proc.wait()
+    part("compression", compressed_steps, args, torch, out, dev)
+    print("  phase 9 by part: " + ", ".join(took))
+
+
+def placement_checks(torch, svcs, k, label) -> None:
+    """Scores bit-equal to the local service's; the global top-k equal
+    in values and ids; each pod's top-k equal to the local top-k over
+    that pod's streams."""
+    import numpy as np
+
+    local = svcs["local"]
+    want = local.scores()
+    vals, ids = local.top_anomalies(k)
+    for name, svc in svcs.items():
+        if not np.array_equal(svc.scores(), want, equal_nan=True):
+            raise AssertionError(f"{label}: {name} scores differ")
+        v, i = svc.top_anomalies(k)
+        if not (np.array_equal(v, vals) and np.array_equal(i, ids)):
+            raise AssertionError(f"{label}: {name} top-{k} {i} != {ids}")
+    pv, pids = svcs["multipod"].top_anomalies(k, per_pod=True)
+    per = len(want) // PODS[0]
+    for pod in range(PODS[0]):
+        lo = pod * per
+        v, i = local.plan.topk(torch.from_numpy(want[lo:lo + per]).to(
+            local.device), k)
+        if not (np.array_equal(pv[pod], v.cpu().numpy())
+                and np.array_equal(pids[pod], i.cpu().numpy() + lo)):
+            raise AssertionError(f"{label}: pod {pod} top-{k} "
+                                 f"{pids[pod]} != {i.tolist()} + {lo}")
+
+
+def sharded_serve(args, torch, out, dev):
+    """Phase 9, part 1: phase 3's checkpoint restored local, sharded
+    over SHARDS logical shards and multipod over PODS, all on the one
+    card, fed the same ticks of phase 3's mix double-buffered; a repad
+    and more ticks; the sharded service's save restored local."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.distributed import Sharded, make_grid
+    from repro_torch.kernels.stream_tick import ops as st_ops
+    from repro_torch.serving import FingerService
+
+    root, ticks_after, cfg = out.pop("serve_a")
+    grids = {"local": None,
+             "sharded": make_grid((SHARDS,), ("data",), dev),
+             "multipod": make_grid(PODS, ("pod", "data"), dev)}
+    svcs, restore_s = {}, {}
+    for name, grid in grids.items():
+        t0 = time.perf_counter()
+        svcs[name] = FingerService.restore(
+            cfg.with_(placement=name, ingestion="double_buffered"),
+            directory=str(root), device=None if grid else dev, grid=grid)
+        torch.cuda.synchronize()
+        restore_s[name] = time.perf_counter() - t0
+    want = state_bits(torch, svcs["local"])
+    for name in ("sharded", "multipod"):
+        check_same(f"{name} restore", want, state_bits(torch, svcs[name]))
+    b, k = cfg.batch_size, cfg.topk.k
+    host_ms = {n: [] for n in svcs}
+    poll_ms = {n: [] for n in svcs}
+    launches = dict.fromkeys(svcs, 0)
+    snap, reports = None, {}
+    zero_counts()
+    for t in range(PH9_TICKS + PH9_REPAD_TICKS):
+        if t == PH9_TICKS:
+            for svc in svcs.values():
+                svc.repad(2 * N_PAD)
+        d = ticks_after[t]
+        if t >= PH9_TICKS:
+            d = dataclasses.replace(d, n_nodes=2 * N_PAD)
+        for name, svc in svcs.items():
+            if name == "sharded" and t == PH9_TICKS // 2:
+                # the shards' states before this tick and their deltas,
+                # for the per-shard kernel times below
+                snap = (svc.states().map(
+                    lambda st: st.map_tensors(torch.clone)),
+                    svc.plan.put_deltas(d))
+            n0 = st_ops.LAUNCHES["stream_tick"]
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            svc.ingest(d)
+            ev0.record()
+            reports[name] = svc.poll()
+            ev1.record()
+            ev1.synchronize()
+            if t < PH9_TICKS:
+                host_ms[name].append((time.perf_counter() - h0) * 1e3)
+                poll_ms[name].append(ev0.elapsed_time(ev1))
+            launches[name] += st_ops.LAUNCHES["stream_tick"] - n0
+        placement_checks(torch, svcs, k, f"phase 9 tick {t}")
+    got = read_counts(out)["stream_tick"]
+    ticks = PH9_TICKS + PH9_REPAD_TICKS
+    want_launches = {"local": ticks, "sharded": SHARDS * ticks,
+                     "multipod": PODS[0] * PODS[1] * ticks}
+    if launches != want_launches or got != sum(want_launches.values()):
+        raise AssertionError(f"stream_tick launches {launches} (total "
+                             f"{got}) != {want_launches}")
+    live = state_bits(torch, svcs["sharded"])
+    check_same("states after the repad ticks", live,
+               state_bits(torch, svcs["local"]),
+               state_bits(torch, svcs["multipod"]))
+    for name, svc in svcs.items():
+        print(f"  {name}: restore {restore_s[name]:.2f} s; {PH9_TICKS} "
+              f"double-buffered ticks, one at a time: median poll "
+              f"{np.median(poll_ms[name]):.3f} ms (CUDA events), median "
+              f"host ingest -> poll end {np.median(host_ms[name]):.3f} ms, "
+              f"{sum(host_ms[name]):.1f} ms for the {PH9_TICKS}: "
+              f"{b * PH9_TICKS / (sum(host_ms[name]) / 1e3):.4g} "
+              f"stream-ticks/s; stream_tick launches "
+              f"{launches[name] / ticks:.0f} a tick")
+    print(f"  after every tick of {ticks} (the last {PH9_REPAD_TICKS} "
+          f"after repad({2 * N_PAD})): scores bit-equal, top-{k} equal "
+          "in values and ids, each pod's top-k equal to the local top-k "
+          "of its streams; states bit-equal at the end")
+
+    # each shard's kernel, in place on a copy of its state, restored
+    # before every call; the sharded tick whole; the top-k merge
+    states, deltas = snap
+    work = states.map(lambda st: st.map_tensors(torch.clone))
+    shard_ms = []
+    for i in range(SHARDS):
+        w, s0 = work.parts[i], states.parts[i]
+
+        def restore(w=w, s0=s0):
+            for f, x in w.tensors().items():
+                x.copy_(getattr(s0, f))
+
+        shard_ms.append(cuda_ms(lambda w=w, d=deltas.parts[i]:
+                                st_ops.stream_tick_fused(
+                                    w, d, exact_smax=True, inplace=True),
+                                20, setup=restore))
+
+    def restore_all():
+        for w, s0 in zip(work.parts, states.parts):
+            for f, x in w.tensors().items():
+                x.copy_(getattr(s0, f))
+
+    plan = svcs["sharded"].plan
+    whole_ms = cuda_ms(lambda: plan.tick(work, deltas), 20,
+                       setup=restore_all)
+    merge = {}
+    for name in ("sharded", "multipod"):
+        scores = reports[name].scores
+        if not isinstance(scores, Sharded):
+            raise AssertionError(f"{name}: unsharded scores")
+        p = svcs[name].plan
+        t0 = time.perf_counter()
+        for _ in range(50):
+            p.topk(scores, k)
+        merge[name] = ((time.perf_counter() - t0) / 50 * 1e3,
+                       cuda_ms(lambda p=p, s=scores: p.topk(s, k), 50))
+    del work, states, deltas, snap
+    print(f"  stream_tick per shard ({b // SHARDS} streams, in place, "
+          f"before repad): " + ", ".join(f"{x:.4f}" for x in shard_ms)
+          + f" ms; the sharded tick's {SHARDS} launches {whole_ms:.4f} ms "
+          f"(CUDA events); top-{k} merge of {SHARDS}x{k} candidates: "
+          + ", ".join(f"{n} {h:.3f} ms host / {c:.4f} ms CUDA events"
+                      for n, (h, c) in merge.items()))
+
+    sh = svcs["sharded"]
+    t0 = time.perf_counter()
+    sh.save(str(root.parent / "sharded"))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = FingerService.restore(sh.config.with_(placement="local"),
+                                 directory=str(root.parent / "sharded"),
+                                 device=dev)
+    torch.cuda.synchronize()
+    back_s = time.perf_counter() - t0
+    check_same("the sharded save restored local", live,
+               state_bits(torch, back))
+    if back.step != sh.step or back.layout != sh.layout:
+        raise AssertionError(f"restored step {back.step} layout "
+                             f"{back.layout} != {sh.step} {sh.layout}")
+    print(f"  the sharded service's save ({sum(v.nbytes for v in live.values()) / 1e6:.1f} MB "
+          f"at n_pad {2 * N_PAD}) {save_s:.2f} s, restored as a local "
+          f"service in {back_s:.2f} s, bit-equal")
+    for svc in (*svcs.values(), back):
+        svc.close()
+    shutil.rmtree(root.parent, ignore_errors=True)
+
+
+def sharded_sparse(torch, out, dev):
+    """Phase 9, part 2: phase 5's checkpoint restored sharded over
+    SP_SHARDS logical shards beside phase 5's restored local service;
+    the tick phase 5 ran after its save, then PH9_SPARSE_TICKS more,
+    bit-equal."""
+    import shutil
+
+    from repro_torch.distributed import make_grid
+    from repro_torch.kernels.sparse_tick import ops as sp_ops
+    from repro_torch.serving import FingerService
+
+    local, root, fleet, caught_up, n_virtual = out.pop("sparse_live")
+    grid = make_grid((SP_SHARDS,), ("data",), dev)
+    t0 = time.perf_counter()
+    sh = FingerService.restore(local.config.with_(placement="sharded"),
+                               directory=str(root), grid=grid)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    zero_counts()
+    sh.ingest(caught_up)
+    sh.poll()
+    check_same("the sharded sparse restore, caught up",
+               state_bits(torch, local, True), state_bits(torch, sh, True))
+    n_sh = []
+    for t in range(PH9_SPARSE_TICKS):
+        deltas = fleet.virtual_deltas(n_virtual)
+        for svc in (local, sh):
+            n0 = sp_ops.LAUNCHES["sparse_tick"]
+            svc.ingest(deltas)
+            svc.poll()
+            if svc is sh:
+                n_sh.append(sp_ops.LAUNCHES["sparse_tick"] - n0)
+        check_same(f"sparse sharded tick {t}", state_bits(torch, local, True),
+                   state_bits(torch, sh, True))
+        if [m.to_json() for m in sh.slot_maps[::64]] != \
+                [m.to_json() for m in local.slot_maps[::64]]:
+            raise AssertionError(f"sparse sharded tick {t}: SlotMaps differ")
+    got = read_counts(out)["sparse_tick"]
+    if n_sh != [SP_SHARDS] * PH9_SPARSE_TICKS \
+            or got != SP_SHARDS * (1 + PH9_SPARSE_TICKS) + PH9_SPARSE_TICKS:
+        raise AssertionError(f"sparse_tick launches {n_sh} a tick on the "
+                             f"sharded service, {got} in all")
+    print(f"  sparse B={local.config.batch_size} sharded over {SP_SHARDS}: "
+          f"restore {restore_s:.2f} s; the tick after phase 5's save and "
+          f"{PH9_SPARSE_TICKS} more bit-equal with phase 5's local service "
+          f"(scores, state, every 64th SlotMap's JSON); sparse_tick "
+          f"launches {n_sh} a tick")
+    for svc in (local, sh):
+        svc.close()
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def dist_finger(torch, g, rank: int, world: int, x0) -> dict:
+    """Distributed FINGER on this rank's shard of ``g``: the state and
+    λ_max, the seconds per iteration of a clean run, and the share of a
+    second run spent in `all_reduce` (each timed between
+    synchronizations, so that run is slower)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import (distributed_finger_state,
+                                         distributed_power_iteration,
+                                         shard_edge_list)
+
+    shard = shard_edge_list(g, rank, world)
+    st = distributed_finger_state(shard)
+    info = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lam = float(distributed_power_iteration(shard, x0=x0, info=info))
+    clean_s = time.perf_counter() - t0
+    spent, all_reduce = [0.0], dist.all_reduce
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        all_reduce(*a, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+
+    dist.all_reduce = timed
+    try:
+        t0 = time.perf_counter()
+        lam2 = float(distributed_power_iteration(shard, x0=x0))
+        timed_s = time.perf_counter() - t0
+    finally:
+        dist.all_reduce = all_reduce
+    return {"q": float(st.q), "s_total": float(st.s_total),
+            "s_max": float(st.s_max), "lam": lam, "lam_again": lam2,
+            "iterations": info["iterations"],
+            "s_per_iteration": clean_s / max(info["iterations"], 1),
+            "all_reduce_share": spent[0] / timed_s,
+            "shard_edges": int(shard.weights.numel())}
+
+
+def dist_rank_main(args) -> int:
+    """One gloo rank of phase 9's distributed FINGER, started by phase 9
+    (``--dist-rank``): the graph and start vector from its directory,
+    this rank's results into it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.graphs.types import EdgeList
+
+    root = Path(args.dist_dir)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{args.dist_port}",
+        rank=args.dist_rank, world_size=args.dist_world)
+    try:
+        dev = torch.device("cuda", 0)
+        data = np.load(root / "graph.npz")
+        w = torch.from_numpy(data["w"]).to(dev)
+        g = EdgeList(senders=torch.from_numpy(data["lo"]).to(dev),
+                     receivers=torch.from_numpy(data["hi"]).to(dev),
+                     weights=w, mask=torch.ones_like(w),
+                     n_nodes=int(data["n"]))
+        deadline = time.perf_counter() + 600
+        while not (root / "go").exists():  # phase 9 runs its parts
+            if time.perf_counter() > deadline:
+                raise TimeoutError("no go from phase 9 in 600 s")
+            time.sleep(0.05)
+        res = dist_finger(torch, g, args.dist_rank, args.dist_world,
+                          torch.from_numpy(data["x0"]))
+    finally:
+        dist.destroy_process_group()
+    (root / f"rank{args.dist_rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def start_gloo_ranks(out):
+    """Phase 9's DIST_RANKS gloo ranks of distributed FINGER on
+    ``cuda:0``, each this script with ``--dist-rank``: phase 7's G and
+    the start vector go to their directory, and they start up and wait
+    there for a go file. Returns (directory, processes)."""
+    import os
+    import shutil
+    import socket
+
+    import numpy as np
+
+    from repro_torch.graphs.spectral import start_vector
+
+    g, _ = out["dist_G"]
+    root = Path(__file__).resolve().parent / "build" / "dist_finger"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    np.savez(root / "graph.npz", lo=g.senders.cpu().numpy(),
+             hi=g.receivers.cpu().numpy(), w=g.weights.cpu().numpy(),
+             n=g.n_nodes, x0=start_vector(g.n_nodes, 0).numpy())
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dist-rank",
+         str(r), "--dist-world", str(DIST_RANKS), "--dist-port", str(port),
+         "--dist-dir", str(root)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(DIST_RANKS)]
+    return root, procs
+
+
+def dist_finger_phase(torch, out, dev, root, procs):
+    """Phase 9, part 3: distributed FINGER on phase 7's G at world size
+    1 under NCCL in this process, then over the gloo ranks of
+    `start_gloo_ranks` on the one card, against the serial
+    `finger_state` and phase 7's `power_iteration_lmax` (the same start
+    vector)."""
+    import shutil
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.core.state import finger_state
+    from repro_torch.graphs.spectral import start_vector
+
+    g, lam_serial = out.pop("dist_G")
+    serial = finger_state(g)
+    want = {"q": float(serial.q), "s_total": float(serial.s_total),
+            "s_max": float(serial.s_max), "lam": lam_serial}
+    results = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        results["nccl x1"] = [dist_finger(torch, g, 0, 1,
+                                          start_vector(g.n_nodes, 0))]
+    finally:
+        dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    (root / "go").touch()
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    ranks_s = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        raise AssertionError(
+            f"gloo ranks exited {[p.returncode for p in procs]}:\n"
+            + "\n".join(log[-3000:] for log in logs))
+    results[f"gloo x{DIST_RANKS}"] = [
+        json.loads((root / f"rank{r}.json").read_text())
+        for r in range(DIST_RANKS)]
+    shutil.rmtree(root, ignore_errors=True)
+    for label, ranks in results.items():
+        r = ranks[0]
+        if any(o[f] != r[f] for o in ranks[1:] for f in want):
+            raise AssertionError(f"{label}: the ranks disagree {ranks}")
+        bad = [f for f, ok in (
+            ("q", abs(r["q"] - want["q"]) < 1e-5),
+            ("s_total", abs(r["s_total"] - want["s_total"])
+             < 1e-6 * abs(want["s_total"])),
+            ("s_max", abs(r["s_max"] - want["s_max"]) < 1e-4),
+            ("lam", abs(r["lam"] - want["lam"]) < 1e-4 * abs(want["lam"])))
+            if not ok]
+        if bad or not np.isfinite([r[f] for f in want]).all():
+            raise AssertionError(f"{label}: {bad} off the serial {want}: "
+                                 f"{r}")
+        print(f"  distributed FINGER, {label}, n={g.n_nodes}, "
+              f"{int(g.weights.numel())} edges ({r['shard_edges']} a "
+              f"shard): q {r['q']:.9f} (serial {want['q']:.9f}), "
+              f"s_total {r['s_total']:.6f}, s_max {r['s_max']:.6f}, "
+              f"lambda_max {r['lam']:.9g} (phase 7 {want['lam']:.9g}) in "
+              f"{r['iterations']} iterations, {r['s_per_iteration'] * 1e3:.3f} "
+              f"ms an iteration; all_reduce share "
+              f"{r['all_reduce_share']:.3f} (a run with each all_reduce "
+              f"between synchronizations)")
+    print(f"  the {DIST_RANKS} gloo ranks (started during the sparse part) "
+          f"took {ranks_s:.1f} s from the go to their exit; every rank "
+          "equal; q within 1e-5, s_total 1e-6 relative, s_max 1e-4, "
+          "lambda 1e-4 relative of the serial path")
+
+
+def compressed_steps(args, torch, out, dev):
+    """Phase 9, part 4: two more steps of phase 6's training with
+    ``compress_grads=True``, held to phase 6's sound-step check; then
+    `elastic_restore` of phase 6's checkpoint onto the card from a CPU
+    template, bit-equal with the copy phase 6 took at its save."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.distributed import init_residuals
+    from repro_torch.models.params import flatten_names
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.fault_tolerance import elastic_restore
+    from repro_torch.train.step import build_train_step
+
+    cfg, params, opt_state, path, saved = out.pop("train_state")
+    opt_cfg = AdamWConfig(lr_peak=TRAIN_LR,
+                          warmup_steps=min(20, TRAIN_STEPS // 5 + 1),
+                          total_steps=TRAIN_STEPS)
+    step_fn = build_train_step(cfg, opt_cfg, compress_grads=True)
+    residuals = init_residuals(params)
+    before = {k: v.clone() for k, v in flatten_names(params).items()}
+    step0 = int(opt_state.step)
+    losses, norms, step_ms = [], [], []
+    zero_counts()
+    for step in range(step0, step0 + 2):
+        batch = synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, args.seed,
+                                step, dev)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        params, opt_state, residuals, metrics = step_fn(
+            params, opt_state, residuals, batch)
+        ev1.record()
+        ev1.synchronize()
+        step_ms.append(ev0.elapsed_time(ev1))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    counts = read_counts(out)
+    stale = [k for k, p in flatten_names(params).items()
+             if torch.equal(p, before[k])]
+    for name, tree in (("mu", opt_state.mu), ("nu", opt_state.nu)):
+        stale += [f"{name}/{k}" for k, m in flatten_names(tree).items()
+                  if not bool(m.any())]
+    res = flatten_names(residuals)
+    res_norm = float(torch.sqrt(sum((r * r).sum() for r in res.values())))
+    if not np.isfinite(losses + norms + [res_norm]).all() or stale \
+            or int(opt_state.step) != step0 + 2 or res_norm == 0 \
+            or any(counts.values()):
+        raise AssertionError(f"compressed steps: losses {losses}, grad "
+                             f"norms {norms}, residual norm {res_norm}, "
+                             f"step {int(opt_state.step)}, unmoved "
+                             f"{stale[:8]}, launches {counts}")
+    print(f"  2 steps with compress_grads=True from phase 6's state: "
+          f"losses {losses}, grad norms {norms}, step ms "
+          + " ".join(f"{x:.1f}" for x in step_ms)
+          + f" (CUDA events); every leaf moved, both moments nonzero, "
+          f"optimizer step {int(opt_state.step)}; residuals' norm "
+          f"{res_norm:.4g}; no kernel launched")
+    del before, residuals, params, opt_state
+
+    template = map_tree_leaves(saved, lambda x: torch.empty_like(
+        x, device="cpu"))
+    t0 = time.perf_counter()
+    back, manifest = elastic_restore(path, template, dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    a, b = flatten_names(saved), flatten_names(back)
+    if list(a) != list(b) or manifest["step"] != TRAIN_STEPS or not all(
+            b[k].device == a[k].device and torch.equal(a[k], b[k])
+            for k in a):
+        raise AssertionError("elastic_restore: phase 6's checkpoint did "
+                             "not restore bit-identical on the card")
+    print(f"  elastic_restore of phase 6's checkpoint ({len(a)} arrays, "
+          f"step {manifest['step']}) onto {dev} from a CPU template: "
+          f"{restore_s:.1f} s, bit-identical")
+    shutil.rmtree(Path(path).parent, ignore_errors=True)
+    del saved, back, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def print_row(r: dict) -> None:
     """One kernel's row of the kernels line, for a reader."""
     floor = f", one empty launch {r['empty_launch_ms']:.4f} ms" \
@@ -3069,7 +3649,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=32768)
+    # one gloo rank of phase 9, started by phase 9 itself
+    for flag in ("--dist-rank", "--dist-world", "--dist-port"):
+        ap.add_argument(flag, type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dist_rank is not None:
+        return dist_rank_main(args)
 
     import torch
 
@@ -3148,6 +3734,9 @@ def main() -> int:
         start("fleet timing", "stacked tick times at the fleet path's "
                               "shapes and inputs:")
         rows += fleet_rows(torch, out)
+        start("sharded", "phase 9 sharded and multipod placements, "
+                         "distributed FINGER, gradient compression:")
+        phase_sharded(args, torch, out, dev)
         for r in rows:  # rows built before a later path count it too
             r["launches"] = out["launches"][r["name"]]
         start("done", "")

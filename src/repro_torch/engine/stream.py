@@ -29,6 +29,11 @@ arrays named as the JAX pytree flattening names a stacked state's
 leaves, ``0`` … ``5``, and the reference's manifest keys), so a
 checkpoint written by either package restores in the other, and a
 `FingerService` checkpoint restores into a bare engine.
+
+Multi-device: `shard_states` splits a stacked state by rows over a
+`DeviceGrid` axis and `make_sharded_tick` ticks each shard on its
+device (the streams are independent, so no collective); `restore`
+takes ``grid=`` to come back sharded.
 """
 from __future__ import annotations
 
@@ -41,6 +46,8 @@ from repro_torch.core.sparse import (SlotMap, SparseLayout,
                                      SparseStreamState,
                                      sparse_states_from_graphs)
 from repro_torch.core.state import FingerState, finger_state
+from repro_torch.distributed.sharding import (Axes, DeviceGrid, Sharded,
+                                              device_context, split_rows)
 from repro_torch.graphs.layout import NodeLayout
 from repro_torch.graphs.types import GraphDelta
 from repro_torch.kernels.dispatch import Device, resolve_device
@@ -282,11 +289,16 @@ class StreamEngine:
         return save_checkpoint(ckpt_dir, step, state_tree(states),
                                metadata=meta, prune_policy=prune_policy)
 
-    def restore(self, ckpt_dir: str) -> Tuple[State, int]:
-        """The stacked state of the latest checkpoint, on this engine's
-        device, and its step."""
+    def restore(self, ckpt_dir: str, grid: Optional[DeviceGrid] = None,
+                axis: Axes = "data") -> Tuple[Union[State, Sharded], int]:
+        """The stacked state of the latest checkpoint and its step: on
+        this engine's device, or split over ``grid``'s ``axis`` (the
+        saving job's placement does not matter: the arrays come back on
+        the host and are laid out anew)."""
         states, step, _ = restore_stacked_state(
             ckpt_dir, exact_smax=self.exact_smax, method=self.method)
+        if grid is not None:
+            return self.shard_states(states, grid, axis), step
         return states.to(self.device), step
 
     # -- serving ---------------------------------------------------------
@@ -309,6 +321,45 @@ class StreamEngine:
         return jsdist_incremental(states, deltas,
                                   exact_smax=self.exact_smax,
                                   method=self.method)
+
+    # -- multi-device ----------------------------------------------------
+    @staticmethod
+    def shard_states(states: State, grid: DeviceGrid,
+                     axis: Axes = "data") -> Sharded:
+        """The stacked state split by rows over ``grid``'s ``axis`` (an
+        axis name, or a tuple of names in mixed-radix order), each
+        shard's block on its device and owning its storage."""
+        return split_rows(states, grid.shard_devices(axis))
+
+    def make_sharded_tick(self, grid: DeviceGrid, axis: Axes = "data"):
+        """A tick with the streams split over ``grid``'s ``axis``:
+        ``(Sharded states, deltas) → (Sharded scores, Sharded states)``,
+        where ``deltas`` is `Sharded` alike or one stacked delta (split
+        here). Each shard runs this engine's tick over its B/p streams on
+        its device (one kernel launch a shard under ``fused_tick`` and
+        ``sparse_tick``). Every shard's tick is enqueued before anything
+        waits, so shards on several cards overlap and logical shards on
+        one card run in order on its current stream."""
+        devices = grid.shard_devices(axis)
+
+        def tick(states: Sharded, deltas):
+            if not isinstance(deltas, Sharded):
+                deltas = split_rows(deltas, devices)
+            if not states.num_shards == deltas.num_shards == len(devices):
+                raise ValueError(
+                    f"sharded tick over {len(devices)} shard(s) got "
+                    f"{states.num_shards} state and {deltas.num_shards} "
+                    "delta block(s)")
+            scores, out = [], []
+            for dev, st, d in zip(devices, states.parts, deltas.parts):
+                with device_context(dev):
+                    sc, st = self.tick(st, d)
+                scores.append(sc)
+                out.append(st)
+            return (Sharded(tuple(scores), states.rows),
+                    Sharded(tuple(out), states.rows))
+
+        return tick
 
     def run(self, states: FingerState, delta_seq: GraphDelta
             ) -> Tuple[torch.Tensor, FingerState]:

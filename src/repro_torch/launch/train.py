@@ -14,9 +14,10 @@ step's time on the card (CUDA events around the step function) or on
 the host clock on the CPU, which also feeds the straggler monitor. On
 CUDA the attention probe launches the ``entropy_probe`` kernels and
 the routing tracker the ``vnge_q`` kernel (three launches an update
-after the first graph). Float32 matmuls run without TF32. The
-reference's ``compress`` option waits for the port of gradient
-compression (ROADMAP Queue 1 item 9).
+after the first graph). Float32 matmuls run without TF32.
+``--compress-grads`` (``compress=True``) trains with int8
+error-feedback gradient compression, its residuals carried across
+steps, as the reference's launcher does.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import synthetic_batch
+from repro_torch.distributed.compression import init_residuals
 from repro_torch.kernels.dispatch import Device, resolve_device
 from repro_torch.models.api import model_param_defs
 from repro_torch.models.params import count_params, init_params
@@ -57,7 +59,8 @@ def _timed(fn, device: torch.device):
 
 def run(cfg, steps: int, batch_size: int, seq: int, ckpt_dir=None,
         ckpt_every: int = 50, probe_every: int = 10, seed: int = 0,
-        lr: float = 1e-3, log=print, device: Device = None):
+        compress: bool = False, lr: float = 1e-3, log=print,
+        device: Device = None):
     """Train ``steps`` steps → (params, opt_state, history)."""
     device = resolve_device(device)
     if device.type == "cuda":
@@ -79,14 +82,24 @@ def run(cfg, steps: int, batch_size: int, seq: int, ckpt_dir=None,
             params, opt_state = restored["params"], restored["opt"]
             log(f"resumed from step {start_step}")
 
-    step_fn = build_train_step(cfg, opt_cfg)
+    residuals = init_residuals(params) if compress else None
+    step_fn = build_train_step(cfg, opt_cfg, compress_grads=compress)
+
+    def step_once(batch):
+        nonlocal params, opt_state, residuals
+        if compress:
+            params, opt_state, residuals, metrics = step_fn(
+                params, opt_state, residuals, batch)
+        else:
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+        return metrics
+
     monitor = StragglerMonitor()
     tracker = RoutingGraphTracker()
     history = []
     for step in range(start_step, steps):
         batch = synthetic_batch(cfg, batch_size, seq, seed, step, device)
-        (params, opt_state, metrics), ms = _timed(
-            lambda: step_fn(params, opt_state, batch), device)
+        metrics, ms = _timed(lambda: step_once(batch), device)
         straggler = monitor.stop(ms / 1e3)
         rec = {"step": step, "loss": float(metrics["loss"]),
                "grad_norm": float(metrics["grad_norm"]),
@@ -125,6 +138,7 @@ def main():
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--probe-every", type=int, default=10)
+    ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args()
@@ -134,7 +148,8 @@ def main():
     t0 = time.time()
     _, _, history = run(cfg, args.steps, args.batch, args.seq,
                         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                        probe_every=args.probe_every, lr=args.lr,
+                        probe_every=args.probe_every,
+                        compress=args.compress_grads, lr=args.lr,
                         device=args.device)
     print(f"done in {time.time()-t0:.1f}s; "
           f"loss {history[0]['loss']:.3f} -> {history[-1]['loss']:.3f}")

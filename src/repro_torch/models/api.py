@@ -7,7 +7,7 @@ The port's copy of the train/prefill part of `repro.models.api`:
   loss = build_loss_fn(cfg)(params, batch)
   fwd  = build_forward_fn(cfg)(params, batch)
 
-Decode (`build_decode_fn`, caches) waits for ROADMAP Queue 1 item 10.
+Decode (`build_decode_fn`, caches) waits for ROADMAP Queue 1 item 2.
 """
 from __future__ import annotations
 

@@ -8,7 +8,7 @@ a tensor-parallel degree above 1) and no sharding constraints.
 masked with -1e30, the GQA expansion by the q-head → kv-head map) in
 plain torch ops, as the reference computes it in jnp outside any Pallas
 kernel. Decode attention and `KVCache` are not ported yet (ROADMAP
-Queue 1 item 10).
+Queue 1 item 2).
 """
 from __future__ import annotations
 

@@ -11,7 +11,7 @@ equal the reference's (``blocks/L0/attn/wq``). The reference's
 ``jax.checkpoint`` is `torch.utils.checkpoint.checkpoint` per period
 (``use_reentrant=False``): it saves memory and changes no number.
 
-Not ported yet (ROADMAP Queue 1 item 10), each refused by name with
+Not ported yet (ROADMAP Queue 1 item 2), each refused by name with
 `NotImplementedError`: the SSM mixer (``mamba2``, ``jamba``), the
 encoder–decoder family (``whisper``), the vision-stub frontend
 (``internvl2``) and the decode path.
@@ -49,7 +49,7 @@ def check_ported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} is not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 10)")
+            "repro_torch yet (ROADMAP Queue 1 item 2)")
 
 
 def period_structure(cfg: ModelConfig

@@ -1,16 +1,13 @@
 """ServiceConfig: the one declarative description of a FINGER service.
 
 The port's counterpart of `repro.serving.config`. It keeps every field
-and every check of the reference that concerns the local placement, and
-rejects by name, as "not yet ported", the options whose code the port
-does not have yet:
-
-- ``placement`` other than ``"local"`` (the sharded and multipod plans);
-- ``compilation_cache_dir``: the reference points JAX's persistent
-  compilation cache there, so that a restarted replica reads its
-  compiled ticks from disk. The port compiles nothing a layout at a
-  time (its kernels are built once per source), so there is no such
-  cache to point anywhere.
+and every check of the reference, and rejects by name, as "not yet
+ported", the one option whose code the port does not have:
+``compilation_cache_dir``. The reference points JAX's persistent
+compilation cache there, so that a restarted replica reads its compiled
+ticks from disk. The port compiles nothing a layout at a time (its
+kernels are built once per source), so there is no such cache to point
+anywhere.
 
 ``ingestion`` defaults to ``"double_buffered"``, as in the reference.
 """
@@ -33,9 +30,9 @@ class ServiceConfigError(ValueError):
 
 def _not_yet_ported(what: str) -> ServiceConfigError:
     return ServiceConfigError(
-        f"{what} is not yet ported to repro_torch; the port serves "
-        "placement='local', ingestion='sync' and the dense, compact, "
-        "fused_tick and sparse_tick methods without checkpoints")
+        f"{what} is not yet ported to repro_torch; its kernels are built "
+        "once per source, so there is no compilation cache to point "
+        "anywhere")
 
 
 def _validate_prune_policy(policy: PrunePolicy) -> None:
@@ -144,7 +141,9 @@ class ServiceConfig:
     m_pad : sparse only — edge-store capacity per stream. Must be None
         for the dense methods.
     exact_smax : recompute s_max exactly after deletions.
-    placement : ``"local"`` (one device).
+    placement : ``"local"`` (one device), ``"sharded"`` (streams split
+        over the ``data_axis`` of a `DeviceGrid`) or ``"multipod"``
+        (over ``(pod_axis, data_axis)``; adds per-pod top-k queries).
     ingestion : ``"double_buffered"`` (default) — `ingest` starts the
         delta's copy to the device on a side stream, so it overlaps the
         tick in flight — or ``"sync"`` — deltas stay on the host until
@@ -159,6 +158,8 @@ class ServiceConfig:
         ones raise `serving.ingest.GraceLapseError`. ``None`` keeps
         every journaled generation.
     compilation_cache_dir : must be None (see the module docstring).
+    data_axis / pod_axis : the `DeviceGrid` axis names the sharded
+        placements bind.
     """
 
     batch_size: int
@@ -177,6 +178,8 @@ class ServiceConfig:
     plan_cache: PlanCachePolicy = PlanCachePolicy()
     grace_generations: Optional[int] = 3
     compilation_cache_dir: Optional[str] = None
+    data_axis: str = "data"
+    pod_axis: str = "pod"
 
     def validate(self, num_shards: Optional[int] = None) -> None:
         """Fail fast with a named error; ``num_shards`` adds the
@@ -213,14 +216,16 @@ class ServiceConfig:
         if self.placement not in PLACEMENTS:
             raise ServiceConfigError(
                 f"placement {self.placement!r} not in {PLACEMENTS}")
-        if self.placement != "local":
-            raise _not_yet_ported(f"placement={self.placement!r}")
         if self.ingestion not in INGESTIONS:
             raise ServiceConfigError(
                 f"ingestion {self.ingestion!r} not in {INGESTIONS}")
         if self.max_queue <= 0:
             raise ServiceConfigError(
                 f"max_queue must be positive, got {self.max_queue}")
+        if self.placement == "multipod" and self.pod_axis == self.data_axis:
+            raise ServiceConfigError(
+                f"multipod placement needs distinct pod/data axes, got "
+                f"{self.pod_axis!r} for both")
         if self.grace_generations is not None \
                 and self.grace_generations < 0:
             raise ServiceConfigError(
@@ -246,9 +251,9 @@ class ServiceConfig:
                 raise ServiceConfigError(
                     f"topk.k={self.topk.k} exceeds the per-shard stream "
                     f"count {per_shard} (batch_size={self.batch_size} "
-                    f"over {num_shards} shards)")
+                    f"over {num_shards} shards); the sharded top-k "
+                    f"merge needs k ≤ B/shards")
 
     def with_(self, **updates) -> "ServiceConfig":
-        """`dataclasses.replace` spelled as a method (the migrations use
-        it)."""
+        """`dataclasses.replace` spelled as a method (repad uses it)."""
         return dataclasses.replace(self, **updates)

@@ -3,21 +3,25 @@
 The port's counterpart of `repro.serving.ingest`:
 
 - ``SyncIngestor``: the baseline. Each stacked delta stays on the host
-  until the tick that consumes it; `get` copies it to the device and
-  blocks until the copy lands, so the transfer sits on the tick's
-  critical path.
+  until the tick that consumes it; `get` copies it to the device (the
+  plan's `put_deltas`) and blocks until the copy lands, so the transfer
+  sits on the tick's critical path.
 - ``DoubleBufferedIngestor``: `put` starts the copy at once. On CUDA it
-  copies the host delta into one slot of a ring of pinned host buffers
-  that the ingestor owns (``max_queue + 1`` slots, one flat buffer a
-  slot), starts one asynchronous copy of the slot to a fresh device
-  buffer on a side `torch.cuda.Stream`, and records an event. `get`
-  makes the current stream wait on that event (no host sync) and
-  records the buffer's use by the current stream with the caching
-  allocator, so its block is not handed out again while the tick reads
-  it. A slot is written again only after its previous copy has landed,
-  and the caller's own tensors never feed an asynchronous copy, so the
-  caller may overwrite them as soon as `ingest` returns. On the CPU
-  both ingestors only queue host tensors.
+  copies each shard's rows of the host delta into one slot of that
+  shard's ring of pinned host buffers (``max_queue + 1`` slots, one
+  flat buffer a slot), starts one asynchronous copy of the slot to a
+  fresh buffer on the shard's device, on a side `torch.cuda.Stream` of
+  that device, and records an event. `get` makes each device's current
+  stream wait on its shard's event (no host sync) and records the
+  buffer's use by that stream with the caching allocator, so its block
+  is not handed out again while the tick reads it. A slot is written
+  again only after its previous copy has landed, and the caller's own
+  tensors never feed an asynchronous copy, so the caller may overwrite
+  them as soon as `ingest` returns. On the CPU both ingestors only
+  queue host tensors.
+
+Both feed the plan through `ExecutionPlan.put_deltas`: the local plan
+takes one block, a sharded plan one block a shard (a `Sharded` delta).
 
 Both check every delta against the service layout up front with a
 named `IngestError` — a dense delta against ``n_pad``, a slot-space
@@ -41,7 +45,7 @@ before validation; a delta that addresses a dropped slot raises:
 
 The stamp is consumed here: queued deltas carry
 ``layout_generation=None``. ``take_all`` hands the queue back to a
-migration, which re-lays it out and puts it back; ``pop`` hands the
+migration, which re-lays it out and ``requeue``s it; ``pop`` hands the
 oldest tick over as held (on the device under double buffering).
 """
 from __future__ import annotations
@@ -53,6 +57,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import each
 from repro_torch.graphs.types import GraphDelta
 from repro_torch.serving.config import ServiceConfig
 
@@ -144,20 +149,20 @@ class SyncIngestor:
     """Transfer-on-consume: `get` copies the delta to the device and
     blocks until the copy lands."""
 
-    def __init__(self, config: ServiceConfig, device: torch.device,
+    def __init__(self, config: ServiceConfig, plan,
                  remaps: Optional[Dict[int, np.ndarray]] = None,
                  remaps_by_gen: Optional[Dict[int, np.ndarray]] = None,
                  generation: int = 0):
         self.config = config
-        self.device = device
+        self.plan = plan
         # old n_pad -> old→current index map (installed by compact()).
         self.remaps: Dict[int, np.ndarray] = dict(remaps or {})
         # old layout generation -> old→current index map.
         self.remaps_by_gen: Dict[int, np.ndarray] = \
             dict(remaps_by_gen or {})
         self.generation = int(generation)
-        # (delta, copy event or None, device buffer or None), oldest
-        # first
+        # (delta, copy event or None, device buffer or None), or a
+        # Sharded of such triples, oldest first
         self._queue: deque = deque()
 
     def __len__(self) -> int:
@@ -209,7 +214,7 @@ class SyncIngestor:
         return remap_delta(deltas, self.remaps[deltas.n_nodes],
                            self.config.n_pad)
 
-    def _prepare(self, deltas: GraphDelta) -> Tuple:
+    def _prepare(self, deltas: GraphDelta):
         """What `put` queues: the delta as given (transfer deferred)."""
         return deltas, None, None
 
@@ -222,25 +227,34 @@ class SyncIngestor:
                 f"pending tick(s)); poll() before ingesting more")
         self._queue.append(self._prepare(deltas))
 
-    def _ready(self, entry: Tuple) -> GraphDelta:
-        """A queued entry's delta, usable on the current stream: the
-        stream waits on the entry's copy, and the allocator learns that
-        the stream reads the entry's device buffer."""
+    def requeue(self, deltas) -> None:
+        """Queue a tick handed out by `take_all` again, as it is (a
+        migration has re-laid it out; it was checked at its `put`)."""
+        self._queue.append(each(lambda d: (d, None, None), deltas))
+
+    @staticmethod
+    def _ready_one(entry: Tuple) -> GraphDelta:
         deltas, event, buf = entry
         if event is not None:
-            stream = torch.cuda.current_stream(self.device)
+            stream = torch.cuda.current_stream(buf.device)
             stream.wait_event(event)
             buf.record_stream(stream)
         return deltas
 
-    def take_all(self) -> List[GraphDelta]:
+    def _ready(self, entry):
+        """A queued entry's delta, usable on the current streams: each
+        shard's device stream waits on its block's copy, and the
+        allocator learns that the stream reads the block's buffer."""
+        return each(self._ready_one, entry)
+
+    def take_all(self) -> List:
         """Pop every pending tick, oldest first (a migration re-lays
-        them out and puts them back)."""
+        them out and requeues them)."""
         out = [self._ready(e) for e in self._queue]
         self._queue.clear()
         return out
 
-    def pop(self) -> Optional[GraphDelta]:
+    def pop(self):
         """Pop the oldest pending tick as held — on the host for the
         sync ingestor, on the device for the double-buffered one — with
         no copy and no host sync (the pool-tick path's consumer moves
@@ -249,39 +263,31 @@ class SyncIngestor:
             return None
         return self._ready(self._queue.popleft())
 
-    def get(self) -> Optional[GraphDelta]:
+    def get(self):
         deltas = self.pop()
         if deltas is None:
             return None
-        deltas = deltas.map_tensors(
-            lambda t: t.to(self.device).contiguous())
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        deltas = self.plan.put_deltas(deltas)
+        self.plan.synchronize()
         return deltas
 
     def drain(self) -> None:
         self._queue.clear()
 
 
-class DoubleBufferedIngestor(SyncIngestor):
-    """Transfer-on-ingest: `put` starts the device copy on a side stream
-    at once, so it overlaps the tick in flight; `get` orders the current
-    stream after it and hands the delta to the tick."""
+class _Stager:
+    """One shard's staging for the double-buffered ingestor: a ring of
+    pinned host slots and the side stream of the shard's device."""
 
-    def __init__(self, config: ServiceConfig, device: torch.device,
-                 remaps: Optional[Dict[int, np.ndarray]] = None,
-                 remaps_by_gen: Optional[Dict[int, np.ndarray]] = None,
-                 generation: int = 0):
-        super().__init__(config, device, remaps, remaps_by_gen,
-                         generation)
-        n_slots = config.max_queue + 1
+    def __init__(self, device: torch.device, n_slots: int,
+                 side: torch.cuda.Stream):
+        self.device = device
+        self.side = side
         # (field layout, pinned flat buffer) and the event of the copy
         # that last read each slot
         self._slots: List[Optional[Tuple]] = [None] * n_slots
         self._events: List[Optional[torch.cuda.Event]] = [None] * n_slots
         self._next = 0
-        self._side = torch.cuda.Stream(device) \
-            if device.type == "cuda" else None
 
     @staticmethod
     def _fields(deltas: GraphDelta) -> Tuple:
@@ -301,11 +307,8 @@ class DoubleBufferedIngestor(SyncIngestor):
             out[name] = buf[off:off + n].view(dtype).view(shape)
         return out
 
-    def _prepare(self, deltas: GraphDelta) -> Tuple:
-        if self._side is None or deltas.dw.device.type == "cuda":
-            # the CPU path, or a tick a migration already holds on the
-            # device (ordered on the current stream by take_all)
-            return deltas, None, None
+    def stage(self, deltas: GraphDelta) -> Tuple:
+        """(the delta on the device, the copy's event, its buffer)."""
         fields, nbytes = self._fields(deltas)
         i = self._next
         self._next = (i + 1) % len(self._slots)
@@ -318,23 +321,53 @@ class DoubleBufferedIngestor(SyncIngestor):
         src = deltas.tensors()
         for name, view in self._views(pinned, fields).items():
             view.copy_(src[name])
-        with torch.cuda.stream(self._side):
+        with torch.cuda.stream(self.side):
             buf = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
             buf.copy_(pinned, non_blocking=True)
             event = torch.cuda.Event()
-            event.record(self._side)
+            event.record(self.side)
         self._events[i] = event
         views = self._views(buf, fields)
         return dataclasses.replace(deltas, **views), event, buf
 
-    def get(self) -> Optional[GraphDelta]:
+
+class DoubleBufferedIngestor(SyncIngestor):
+    """Transfer-on-ingest: `put` starts each shard's device copy on a
+    side stream at once, so it overlaps the tick in flight; `get` orders
+    the current streams after them and hands the delta to the tick."""
+
+    def __init__(self, config: ServiceConfig, plan,
+                 remaps: Optional[Dict[int, np.ndarray]] = None,
+                 remaps_by_gen: Optional[Dict[int, np.ndarray]] = None,
+                 generation: int = 0):
+        super().__init__(config, plan, remaps, remaps_by_gen, generation)
+        sides: Dict[torch.device, torch.cuda.Stream] = {}
+        self._stagers: List[_Stager] = []
+        for dev in plan.shard_devices:
+            if dev.type == "cuda":
+                if dev not in sides:
+                    sides[dev] = torch.cuda.Stream(dev)
+                self._stagers.append(_Stager(dev, config.max_queue + 1,
+                                             sides[dev]))
+
+    def _prepare(self, deltas: GraphDelta):
+        if not self._stagers:
+            return deltas, None, None  # the CPU path
+        if deltas.dw.device.type == "cuda":  # already on a card
+            return each(lambda d: (d, None, None),
+                        self.plan.put_deltas(deltas))
+        return self.plan.put_deltas(
+            deltas, stage=lambda i, dev, part: self._stagers[i].stage(part))
+
+    def get(self):
         return self.pop()
 
 
-def make_ingestor(config: ServiceConfig, device: torch.device,
+def make_ingestor(config: ServiceConfig, plan,
                   remaps: Optional[Dict[int, np.ndarray]] = None,
                   remaps_by_gen: Optional[Dict[int, np.ndarray]] = None,
                   generation: int = 0) -> SyncIngestor:
+    """The ingestor of ``config.ingestion`` feeding ``plan``."""
     cls = DoubleBufferedIngestor \
         if config.ingestion == "double_buffered" else SyncIngestor
-    return cls(config, device, remaps, remaps_by_gen, generation)
+    return cls(config, plan, remaps, remaps_by_gen, generation)

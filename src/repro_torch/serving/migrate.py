@@ -20,6 +20,13 @@ run on the stacked state's own device, as plain PyTorch ops:
   returns a copy, never a view of the state the next in-place tick
   overwrites; the other two write the stacked state in place.
 
+Sharded states (the sharded placements' `Sharded` of per-shard
+stacked states) go through the same functions: the transforms run shard
+by shard on each shard's device, the occupancy is the OR of every
+shard's, so a compaction's one index map (computed on the first shard's
+device) renumbers every shard alike, and the row hooks address a global
+stream slot in its shard.
+
 Deltas: ``remap_delta`` renumbers a delta addressed in an older layout
 through an index map, on whatever device the delta lives, and raises
 `LayoutMigrationError` when a live lane or node slot addresses a
@@ -36,6 +43,7 @@ older-generation checkpoint forward through it
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 from typing import Dict, List, Optional, Tuple, Union
@@ -45,6 +53,7 @@ import torch
 
 from repro_torch.core.sparse import SparseLayout, SparseStreamState
 from repro_torch.core.state import FingerState
+from repro_torch.distributed.sharding import Sharded, each
 from repro_torch.graphs.layout import (NodeLayout, compose_index_maps,
                                        identity_index_map)
 from repro_torch.graphs.types import GraphDelta
@@ -53,6 +62,7 @@ from repro_torch.serving.config import ServiceConfigError
 LAYOUT_LOG = "layout_log.json"
 
 State = Union[FingerState, SparseStreamState]
+Placed = Union[State, Sharded]
 
 
 class LayoutMigrationError(ServiceConfigError):
@@ -77,6 +87,32 @@ def _occupancy_device(mask: torch.Tensor) -> torch.Tensor:
     return mask > 0
 
 
+def _parts(states: Placed) -> Tuple[State, ...]:
+    return states.parts if isinstance(states, Sharded) else (states,)
+
+
+def _occupancy_placed(states: Placed) -> torch.Tensor:
+    """The occupancy of every shard, OR-ed on the first shard's device
+    (one (n_pad,) vector a shard moves)."""
+    parts = _parts(states)
+    dev = parts[0].strengths.device
+    occ = None
+    for p in parts:
+        o = _occupancy_device(_stacked_mask(p)).to(dev)
+        occ = o if occ is None else occ | o
+    return occ
+
+
+def per_shard(fn):
+    """Apply a stacked-state transform ``fn(states, *args)`` to each
+    shard of a `Sharded` state (on its own device), or to the state."""
+    @functools.wraps(fn)
+    def apply(states, *args, **kwargs):
+        return each(lambda st: fn(st, *args, **kwargs), states)
+    return apply
+
+
+@per_shard
 def grow_stacked(states: FingerState,
                  new_layout: NodeLayout) -> FingerState:
     """Embed the stacked state into a larger layout on its device. Old
@@ -94,11 +130,13 @@ def grow_stacked(states: FingerState,
         node_mask=pad(_stacked_mask(states), grow), layout=new_layout)
 
 
-def compact_stacked_auto(states: FingerState, new_layout: NodeLayout
-                         ) -> Tuple[FingerState, torch.Tensor]:
+def compact_stacked_auto(states: Placed, new_layout: NodeLayout
+                         ) -> Tuple[Placed, torch.Tensor]:
     """Compact to ``new_layout``: occupancy, renumbering and gather on
-    the device. Returns ``(compacted_states, index_map)``, the map an
-    (old_n_pad,) int32 device tensor (old slot → new slot, -1 dropped).
+    the device (each shard's gather on its own; the map from the
+    occupancy of all). Returns ``(compacted_states, index_map)``, the
+    map an (old_n_pad,) int32 tensor on the first shard's device (old
+    slot → new slot, -1 dropped).
 
     Dropped slots are inactive in every stream (zero strength, zero
     mask), so Q, S and s_max pass through and the gathered strengths
@@ -106,15 +144,14 @@ def compact_stacked_auto(states: FingerState, new_layout: NodeLayout
     ``new_layout.n_pad`` holds every live slot (`FingerService.compact`
     does, against the live-slot count).
     """
-    old_n_pad = int(states.strengths.shape[-1])
+    old_n_pad = int(_parts(states)[0].strengths.shape[-1])
     new_n_pad = new_layout.n_pad
     if new_n_pad > old_n_pad:
         raise LayoutMigrationError(
             f"compact_stacked_auto: new layout n_pad={new_n_pad} "
             f"exceeds the current n_pad={old_n_pad} (grow_stacked "
             "grows)")
-    mask = _stacked_mask(states)
-    occ = _occupancy_device(mask)
+    occ = _occupancy_placed(states)
     # Live slot i → the number of live slots before it.
     new_idx = torch.cumsum(occ.to(torch.int32), 0, dtype=torch.int32) - 1
     index_map = torch.where(occ, new_idx, -1).to(torch.int32)
@@ -124,16 +161,22 @@ def compact_stacked_auto(states: FingerState, new_layout: NodeLayout
     old_of = torch.argsort(keys, stable=True)[:new_n_pad]
     valid = torch.arange(new_n_pad, device=occ.device) < occ.sum()
 
-    def gather(x):
-        return torch.where(valid, x[..., old_of], 0.0)
+    def one(st: FingerState) -> FingerState:
+        dev = st.strengths.device
+        src, ok = old_of.to(dev), valid.to(dev)
 
-    out = FingerState(
-        q=states.q, s_total=states.s_total, s_max=states.s_max,
-        strengths=gather(states.strengths), node_mask=gather(mask),
-        layout=new_layout)
-    return out, index_map
+        def gather(x):
+            return torch.where(ok, x[..., src], 0.0)
+
+        return FingerState(
+            q=st.q, s_total=st.s_total, s_max=st.s_max,
+            strengths=gather(st.strengths),
+            node_mask=gather(_stacked_mask(st)), layout=new_layout)
+
+    return each(one, states), index_map
 
 
+@per_shard
 def truncate_stacked(states: FingerState,
                      new_layout: NodeLayout) -> FingerState:
     """Tail-only shrink: slots [0, new_n_pad) keep their ids. The caller
@@ -151,6 +194,7 @@ def truncate_stacked(states: FingerState,
         layout=new_layout)
 
 
+@per_shard
 def grow_sparse_stacked(states: SparseStreamState,
                         new_layout: SparseLayout) -> SparseStreamState:
     """A stacked `SparseStreamState` padded to grown capacities, on its
@@ -175,71 +219,75 @@ def grow_sparse_stacked(states: SparseStreamState,
         layout=new_layout)
 
 
-def live_slot_count(states: FingerState) -> int:
-    """Slots live in any stream: one device reduction, one scalar read."""
-    if states.node_mask is None:
-        return int(states.strengths.shape[-1])
-    return int(_occupancy_device(states.node_mask).sum())
+def live_slot_count(states: Placed) -> int:
+    """Slots live in any stream: one device reduction (a shard), one
+    scalar read."""
+    return int(_occupancy_placed(states).sum())
 
 
-def occupancy(states: FingerState) -> np.ndarray:
-    """(n_pad,) bool, slot live in any stream: one device reduction and
-    the read of an (n_pad,) vector, never of the stacked state."""
-    if states.node_mask is None:
-        return np.ones((int(states.strengths.shape[-1]),), bool)
-    return _occupancy_device(states.node_mask).cpu().numpy()
+def occupancy(states: Placed) -> np.ndarray:
+    """(n_pad,) bool, slot live in any stream: one device reduction (a
+    shard) and the read of an (n_pad,) vector, never of the stacked
+    state."""
+    return _occupancy_placed(states).cpu().numpy()
 
 
 # -- one stream's row (the fleet's hand-off hooks) ------------------------
 
-def _check_slot(what: str, states: State, slot: int) -> None:
-    b = int(states.q.shape[0])
+def _locate(what: str, states: Placed, slot: int) -> Tuple[State, int]:
+    """The stacked state (a shard's, when sharded) holding global stream
+    ``slot``, and the slot's row in it."""
+    parts = _parts(states)
+    rows = int(parts[0].q.shape[0])
+    b = rows * len(parts)
     if not 0 <= int(slot) < b:
         raise LayoutMigrationError(
             f"{what}: slot {int(slot)} outside the stacked batch of {b} "
             "stream(s)")
+    shard, local = divmod(int(slot), rows)
+    return parts[shard], local
 
 
-def take_stream(states: State, slot: int) -> State:
+def take_stream(states: Placed, slot: int) -> State:
     """One stream's row (slot axis dropped), copied: the stacked state
     is left as it is, and the next in-place tick does not change the
     row."""
-    _check_slot("take_stream", states, slot)
-    return states.map_tensors(lambda x: x[int(slot)].clone())
+    part, local = _locate("take_stream", states, slot)
+    return part.map_tensors(lambda x: x[local].clone())
 
 
-def put_stream(states: State, row: State, slot: int) -> State:
+def put_stream(states: Placed, row: State, slot: int) -> Placed:
     """Write ``row`` (a single-stream state, as from `take_stream`;
     tensors on any device, or numpy arrays) into ``slot`` of the stacked
     state, in place. The row must carry the same layout (n_pad and
     generation, or the sparse capacities) and the same fields."""
-    _check_slot("put_stream", states, slot)
-    if type(row) is not type(states) or row.layout != states.layout \
-            or row.tensors().keys() != states.tensors().keys():
+    part, local = _locate("put_stream", states, slot)
+    if type(row) is not type(part) or row.layout != part.layout \
+            or row.tensors().keys() != part.tensors().keys():
         raise LayoutMigrationError(
             f"put_stream: row {type(row).__name__}(layout={row.layout}, "
             f"fields={sorted(row.tensors())}) does not match the stacked "
-            f"{type(states).__name__}(layout={states.layout}, "
-            f"fields={sorted(states.tensors())}) — the row must carry "
+            f"{type(part).__name__}(layout={part.layout}, "
+            f"fields={sorted(part.tensors())}) — the row must carry "
             "the same static layout (n_pad + generation) as the target "
             "shard")
     rows = row.tensors()
-    for name, x in states.tensors().items():
+    for name, x in part.tensors().items():
         r = torch.as_tensor(rows[name], dtype=x.dtype)
         if tuple(r.shape) != tuple(x.shape[1:]):
             raise LayoutMigrationError(
                 f"put_stream: row field {name} has shape "
                 f"{tuple(r.shape)}, not {tuple(x.shape[1:])}")
-        x[int(slot)].copy_(r)
+        x[local].copy_(r)
     return states
 
 
-def clear_stream(states: State, slot: int) -> State:
+def clear_stream(states: Placed, slot: int) -> Placed:
     """Zero one stream's row in place (the free-slot state: mask 0,
     strength 0, Q/S/s_max 0 — its JSdist against an empty delta is 0)."""
-    _check_slot("clear_stream", states, slot)
-    for x in states.tensors().values():
-        x[int(slot)].zero_()
+    part, local = _locate("clear_stream", states, slot)
+    for x in part.tensors().values():
+        x[local].zero_()
     return states
 
 

@@ -1,15 +1,31 @@
 """ExecutionPlan: how one ServiceConfig ticks and answers queries.
 
-The port's counterpart of `repro.serving.plans`, for the local
-placement only: `LocalPlan` runs the `StreamEngine` tick on one device
-— on a stacked `FingerState`, or on a stacked `SparseStreamState` under
-``method="sparse_tick"`` — and answers global top-k queries. The
-sharded and multipod plans are not yet ported.
+The port's counterpart of `repro.serving.plans`. A plan owns what is
+placement-shaped: the tick, where the stacked state and each tick's
+delta live, and how `top_anomalies` runs. `FingerService` builds one
+from ``config.placement``:
 
-Top-k order. `top_anomalies` sorts the scores with a stable descending
-sort and keeps the first k, which gives `jax.lax.top_k`'s order on ties
-(the lower stream id first). Unchanged streams score exactly 0, so ties
-are common.
+- ``LocalPlan``: the `StreamEngine` tick on one device, on a stacked
+  `FingerState` (or `SparseStreamState` under ``method="sparse_tick"``).
+- ``ShardedPlan``: the streams split over the ``data_axis`` of a
+  `DeviceGrid`; each shard's B/p streams tick on its device
+  (`StreamEngine.make_sharded_tick`: one kernel launch a shard, all
+  enqueued before anything waits). Independent streams need no
+  collective. The state is a `Sharded` of per-shard stacked states,
+  each owning its tensors.
+- ``MultiPodPlan``: the streams split over ``(pod_axis, data_axis)``;
+  adds per-pod top-k queries merged over the data axis only.
+
+One process drives every shard (the reference's single controller);
+shards may share a device (logical shards on one card, or CPU grids).
+
+Top-k order. Each shard sorts its scores with a stable descending sort
+and keeps its first k; its local ids become global ids by the shard's
+mixed-radix offset, the p·k candidates move to the first shard's
+device and a stable sort merges them. That gives `jax.lax.top_k`'s
+order on ties (the lower stream id first), the `LocalPlan`'s order.
+Unchanged streams score exactly 0, so ties are common. The (B,) score
+vector is never gathered for a query.
 
 `PlanCache` is the warm pool behind the migrations: it holds plans
 made ready (`ExecutionPlan.warm_tick`) for predicted next layouts, so
@@ -23,19 +39,23 @@ signature and gives the caching allocator the blocks of those shapes.
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core.sparse import (EDGE_SLOT_SENTINEL, SparseLayout,
                                      SparseStreamState)
 from repro_torch.core.state import FingerState
+from repro_torch.distributed.sharding import (DeviceGrid, Sharded,
+                                              concat_rows, make_grid)
 from repro_torch.engine.stream import StreamEngine
 from repro_torch.graphs.layout import NodeLayout
 from repro_torch.graphs.types import GraphDelta
 from repro_torch.serving.config import ServiceConfig, ServiceConfigError
 
 Layout = Union[NodeLayout, SparseLayout]
+State = Union[FingerState, SparseStreamState]
+Where = Union[torch.device, DeviceGrid]
 
 
 def dummy_tick_args(config: ServiceConfig, layout: Layout,
@@ -91,9 +111,16 @@ def dummy_tick_args(config: ServiceConfig, layout: Layout,
 
 
 class ExecutionPlan:
-    """Tick + placement policy for one ServiceConfig on one device."""
+    """Tick + placement policy for one ServiceConfig.
 
-    num_shards = 1
+    Subclasses fill in ``axes`` (the grid axes the stream axis is split
+    over; none for the local plan), ``grid`` and ``shard_devices`` (the
+    device of each shard, in shard order). ``device`` is the first
+    shard's: the one that answers queries.
+    """
+
+    axes: Tuple[str, ...] = ()
+    grid: Optional[DeviceGrid] = None
 
     def __init__(self, config: ServiceConfig, device: torch.device):
         self.config = config
@@ -101,36 +128,84 @@ class ExecutionPlan:
         self.engine = StreamEngine(exact_smax=config.exact_smax,
                                    method=config.method, device=device)
 
+    # -- placement geometry ---------------------------------------------
+    @property
+    def shard_devices(self) -> List[torch.device]:
+        return [self.device]
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.shard_devices)
+
     @property
     def streams_per_shard(self) -> int:
         return self.config.batch_size // self.num_shards
 
-    def tick(self, states: Union[FingerState, SparseStreamState],
-             deltas: GraphDelta
-             ) -> Tuple[torch.Tensor, Union[FingerState, SparseStreamState]]:
+    @property
+    def devices(self) -> List[torch.device]:
+        """Each distinct device of the plan once."""
+        out: List[torch.device] = []
+        for d in self.shard_devices:
+            if d not in out:
+                out.append(d)
+        return out
+
+    @property
+    def where(self) -> Where:
+        """What the plan was built on: its device, or its grid."""
+        return self.device if self.grid is None else self.grid
+
+    def synchronize(self) -> None:
+        """Wait for every CUDA device of the plan."""
+        for d in self.devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    # -- data movement ---------------------------------------------------
+    def place(self, states: State) -> Union[State, Sharded]:
+        """A whole stacked state laid out as this plan keeps it."""
+        return states.to(self.device)
+
+    def gather(self, x, device="cpu"):
+        """A stacked value this plan holds (state or scores), whole on
+        ``device``."""
+        return concat_rows(x, device)
+
+    def put_deltas(self, deltas: GraphDelta,
+                   stage: Optional[Callable] = None):
+        """One tick's stacked host delta moved to where the tick reads
+        it: each shard's rows to its device. ``stage(shard, device,
+        rows)``, if given, moves one shard's rows instead (the
+        double-buffered ingestor's side-stream copy) and its results
+        are returned in the plan's layout (`Sharded` for a sharded
+        plan)."""
+        if stage is not None:
+            return stage(0, self.device, deltas)
+        return deltas.map_tensors(lambda t: t.to(self.device).contiguous())
+
+    # -- the tick --------------------------------------------------------
+    def tick(self, states, deltas: GraphDelta):
         """(B,) JSdist scores + updated stacked state (``states`` may be
-        updated in place — rebind to the returned one)."""
+        updated in place — rebind to the returned one). A sharded plan
+        returns both as `Sharded`."""
         raise NotImplementedError
 
-    def warm_tick(self, layout: Layout,
-                  stream: Optional[torch.cuda.Stream] = None) -> None:
+    def warm_tick(self, layout: Layout) -> None:
         """Run this plan's tick and default top-k once on zero-filled
-        state and delta at ``layout`` and wait for them, on ``stream``
-        (a background warm passes its own) or the current stream. Called
-        by `PlanCache.warm` with the predicted post-migration layout."""
-        if self.device.type != "cuda":
-            self._warm(layout)
-            return
-        stream = stream or torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(stream):
-            self._warm(layout)
-        stream.synchronize()
-
-    def _warm(self, layout: Layout) -> None:
-        states, deltas = dummy_tick_args(self.config, layout, self.device)
-        dists, _ = self.tick(states, deltas)
+        state and delta at ``layout`` and wait for them, on each
+        device's current stream (a background warm makes streams of its
+        own current). Called by `PlanCache.warm` with the predicted
+        post-migration layout."""
+        dists, _ = self.tick(*self._dummies(layout))
         self.topk(dists, self.config.topk.k)
+        for d in self.devices:
+            if d.type == "cuda":
+                torch.cuda.current_stream(d).synchronize()
 
+    def _dummies(self, layout: Layout):
+        return dummy_tick_args(self.config, layout, self.device)
+
+    # -- queries ---------------------------------------------------------
     def _validate_k(self, k: int) -> None:
         if k <= 0:
             raise ServiceConfigError(f"top_anomalies k={k} must be "
@@ -140,12 +215,25 @@ class ExecutionPlan:
                 f"top_anomalies k={k} exceeds the per-shard stream "
                 f"count {self.streams_per_shard} "
                 f"(batch_size={self.config.batch_size} over "
-                f"{self.num_shards} shard(s))")
+                f"{self.num_shards} shard(s)); shrink k or re-open with "
+                f"a coarser placement")
 
-    def topk(self, scores: torch.Tensor, k: int
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Global top-k: ((k,) values, (k,) int32 stream ids), descending."""
+    def topk(self, scores, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Global top-k: ((k,) values, (k,) int32 stream ids),
+        descending, on ``device``."""
         raise NotImplementedError
+
+    def score_at(self, scores, slot: int) -> float:
+        """One stream's score of a (B,) score vector this plan holds."""
+        return float(scores[int(slot)])
+
+
+def _stable_topk(scores: torch.Tensor, k: int, offset: int = 0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first k of a stable descending sort, ids shifted by
+    ``offset`` (ties keep the lower id first)."""
+    vals, ids = torch.sort(scores, descending=True, stable=True)
+    return vals[:k], (ids[:k] + offset).to(torch.int32)
 
 
 class LocalPlan(ExecutionPlan):
@@ -156,20 +244,126 @@ class LocalPlan(ExecutionPlan):
 
     def topk(self, scores, k):
         self._validate_k(k)
-        vals, ids = torch.sort(scores, descending=True, stable=True)
-        return vals[:k], ids[:k].to(torch.int32)
+        return _stable_topk(scores, k)
+
+
+def _require_axis(grid: DeviceGrid, axis: str) -> None:
+    if axis not in grid.axis_names:
+        raise ServiceConfigError(
+            f"grid axes {tuple(grid.axis_names)} carry no {axis!r} axis "
+            f"required by the placement")
+
+
+class _ShardedPlanBase(ExecutionPlan):
+    """The sharded and multipod placements: the stream axis split over
+    the grid's ``axes`` in mixed-radix order."""
+
+    def __init__(self, config: ServiceConfig, grid: DeviceGrid):
+        for ax in self.axes:
+            _require_axis(grid, ax)  # a named error before anything
+        self.grid = grid
+        self._shard_devices = grid.shard_devices(self.axes)
+        config.validate(num_shards=len(self._shard_devices))
+        super().__init__(config, self._shard_devices[0])
+        self._tick = self.engine.make_sharded_tick(grid, self.axes)
+
+    @property
+    def shard_devices(self) -> List[torch.device]:
+        return list(self._shard_devices)
+
+    def place(self, states):
+        return self.engine.shard_states(states, self.grid, self.axes)
+
+    def put_deltas(self, deltas, stage=None):
+        rows = self.streams_per_shard
+        parts = []
+        for i, dev in enumerate(self._shard_devices):
+            part = deltas.map_tensors(
+                lambda t, lo=i * rows: t[lo:lo + rows])
+            parts.append(stage(i, dev, part) if stage is not None else
+                         part.map_tensors(lambda t, d=dev:
+                                          t.to(d).contiguous()))
+        return Sharded(tuple(parts), rows)
+
+    def tick(self, states, deltas):
+        return self._tick(states, deltas)
+
+    def _dummies(self, layout):
+        c = self.config.with_(batch_size=self.streams_per_shard)
+        states, deltas = zip(*(dummy_tick_args(c, layout, d)
+                               for d in self._shard_devices))
+        rows = self.streams_per_shard
+        return Sharded(states, rows), Sharded(deltas, rows)
+
+    def _candidates(self, scores: Sharded, k: int, shards
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The stable top-k of each shard in ``shards`` with global ids,
+        concatenated in shard order on the first shard's device."""
+        rows, vals, ids = self.streams_per_shard, [], []
+        for i in shards:
+            v, g = _stable_topk(scores.parts[i], k, i * rows)
+            vals.append(v.to(self.device))
+            ids.append(g.to(self.device))
+        return torch.cat(vals), torch.cat(ids)
+
+    def topk(self, scores, k):
+        self._validate_k(k)
+        cand_vals, cand_ids = self._candidates(scores, k,
+                                               range(self.num_shards))
+        vals, pos = torch.sort(cand_vals, descending=True, stable=True)
+        return vals[:k], cand_ids[pos[:k]]
+
+    def score_at(self, scores, slot):
+        shard, local = scores.locate(slot)
+        return float(scores.parts[shard][local])
+
+
+class ShardedPlan(_ShardedPlanBase):
+    """Streams split over ``(data_axis,)`` of a grid."""
+
+    def __init__(self, config: ServiceConfig, grid: DeviceGrid):
+        self.axes = (config.data_axis,)
+        super().__init__(config, grid)
+
+
+class MultiPodPlan(_ShardedPlanBase):
+    """Streams split over ``(pod_axis, data_axis)``; per-pod top-k
+    queries merge candidates over the data axis only."""
+
+    def __init__(self, config: ServiceConfig, grid: DeviceGrid):
+        self.axes = (config.pod_axis, config.data_axis)
+        super().__init__(config, grid)
+
+    @property
+    def n_pods(self) -> int:
+        return self.grid.axis_size(self.config.pod_axis)
+
+    def pod_topk(self, scores: Sharded, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-pod top-k: ((n_pods, k) values, (n_pods, k) stream ids).
+        Each pod merges the n_data·k candidates of its own shards."""
+        self._validate_k(k)
+        n_data = self.num_shards // self.n_pods
+        vals, ids = [], []
+        for pod in range(self.n_pods):
+            cv, ci = self._candidates(
+                scores, k, range(pod * n_data, (pod + 1) * n_data))
+            v, pos = torch.sort(cv, descending=True, stable=True)
+            vals.append(v[:k])
+            ids.append(ci[pos[:k]])
+        return torch.stack(vals), torch.stack(ids)
 
 
 class PlanCache:
     """Warm pool of ready `ExecutionPlan`s for layout migrations.
 
     Keyed by the `ServiceConfig` fields a plan's tick depends on and the
-    device. ``warm`` builds a plan for a predicted next config and warms
-    it at the predicted layout; ``get`` is what `FingerService` swaps
-    through: a hit returns the warm plan (popped: one migration
-    consumes one warm plan), a miss builds a cold one. The lock covers
-    the dict only, never a warm, so a background warming thread may
-    insert while the serving thread pops.
+    device or grid. ``warm`` builds a plan for a predicted next config
+    and warms it at the predicted layout; ``get`` is what
+    `FingerService` swaps through: a hit returns the warm plan (popped:
+    one migration consumes one warm plan), a miss builds a cold one. The
+    lock covers the dict only, never a warm, so a background warming
+    thread may insert while the serving thread pops.
     """
 
     def __init__(self):
@@ -177,14 +371,16 @@ class PlanCache:
         self._lock = threading.Lock()
 
     @staticmethod
-    def _key(config: ServiceConfig, device: torch.device) -> tuple:
+    def _key(config: ServiceConfig, where: Where) -> tuple:
         # Under the sparse method n_pad is the virtual addressing bound,
         # which no device tensor depends on, so a free virtual repad
         # between warm() and get() keeps a warm plan valid.
         n_pad = None if config.method == "sparse_tick" else config.n_pad
         return (config.batch_size, n_pad, config.k_pad, config.j_pad,
                 config.n_slots, config.m_pad, config.method,
-                config.exact_smax, config.placement, str(device))
+                config.exact_smax, config.placement, config.data_axis,
+                config.pod_axis,
+                where.key if isinstance(where, DeviceGrid) else str(where))
 
     def __len__(self) -> int:
         with self._lock:
@@ -196,22 +392,20 @@ class PlanCache:
         with self._lock:
             return tuple(layout for _, layout in self._plans.values())
 
-    def warm(self, config: ServiceConfig, device: torch.device,
-             layout: Layout,
-             stream: Optional[torch.cuda.Stream] = None) -> ExecutionPlan:
+    def warm(self, config: ServiceConfig, where: Where,
+             layout: Layout) -> ExecutionPlan:
         """Build a plan for ``config`` and warm it at ``layout``."""
-        plan = build_plan(config, device)
-        plan.warm_tick(layout, stream)
+        plan = build_plan(config, where)
+        plan.warm_tick(layout)
         with self._lock:
-            self._plans[self._key(config, device)] = (plan, layout)
+            self._plans[self._key(config, where)] = (plan, layout)
         return plan
 
-    def get(self, config: ServiceConfig,
-            device: torch.device) -> ExecutionPlan:
+    def get(self, config: ServiceConfig, where: Where) -> ExecutionPlan:
         """The plan to install for ``config``: the warm one if it was
         predicted, a cold `build_plan` otherwise."""
         with self._lock:
-            hit = self._plans.pop(self._key(config, device), None)
+            hit = self._plans.pop(self._key(config, where), None)
         if hit is not None:
             cached = hit[0].config
             if config.method == "sparse_tick":
@@ -221,10 +415,37 @@ class PlanCache:
             if cached == config:
                 hit[0].config = cached
                 return hit[0]
-        return build_plan(config, device)
+        return build_plan(config, where)
 
 
-def build_plan(config: ServiceConfig, device: torch.device) -> ExecutionPlan:
-    """The plan of ``config.placement`` (only ``local`` is ported)."""
-    config.validate(num_shards=1)
-    return LocalPlan(config, device)
+def default_grid(config: ServiceConfig, device: torch.device) -> DeviceGrid:
+    """The grid a sharded placement gets when the caller names only a
+    device: one shard on a CPU device, one per visible card on CUDA
+    (``(1, n)`` over ``(pod_axis, data_axis)`` for multipod)."""
+    devices = [device] if device.type == "cpu" else None
+    n = 1 if device.type == "cpu" else torch.cuda.device_count()
+    if config.placement == "multipod":
+        return make_grid((1, n), (config.pod_axis, config.data_axis),
+                         devices)
+    return make_grid((n,), (config.data_axis,), devices)
+
+
+def build_plan(config: ServiceConfig, where: Where) -> ExecutionPlan:
+    """The plan of ``config.placement`` on a device (a sharded placement
+    then gets `default_grid`) or a `DeviceGrid` (sharded placements
+    only)."""
+    if config.placement == "local":
+        if isinstance(where, DeviceGrid):
+            raise ServiceConfigError(
+                "placement='local' takes no grid; use 'sharded' or "
+                "'multipod' to place streams on a grid")
+        config.validate(num_shards=1)
+        return LocalPlan(config, where)
+    if config.placement not in ("sharded", "multipod"):
+        raise ServiceConfigError(
+            f"unknown placement {config.placement!r}")
+    grid = where if isinstance(where, DeviceGrid) \
+        else default_grid(config, where)
+    if config.placement == "sharded":
+        return ShardedPlan(config, grid)
+    return MultiPodPlan(config, grid)

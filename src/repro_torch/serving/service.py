@@ -1,7 +1,6 @@
 """FingerService: the declarative serving facade over FINGER streams.
 
-The port's counterpart of `repro.serving.service`, for the local
-placement:
+The port's counterpart of `repro.serving.service`:
 
     config = ServiceConfig(batch_size=256, n_pad=128, k_pad=32,
                            method="fused_tick",
@@ -41,12 +40,22 @@ batch); `grow_capacity` grows the slot capacities on the device, and
 `repad` raises the virtual bound ``n_pad``, which only the host maps
 read. `save` writes the maps' JSON beside the state.
 
+The sharded placements (``placement="sharded"`` / ``"multipod"``, with
+``grid=`` a `distributed.sharding.DeviceGrid`) keep this API: one
+service ingests the (B,) deltas of every stream, answers one global
+top-k (and per-pod top-k under multipod) and writes one checkpoint in
+the same on-disk format. Its state is a `Sharded` of per-shard stacked
+states, each on its shard's device and owning its tensors; the
+migrations and the stream hooks work shard by shard, and `save`
+gathers the shards to the host.
+
 The fleet's hooks: `begin_pool_tick` / `finish_pool_tick` let a
 pool-stacked launch tick this service's queue, and `extract_stream` /
 `install_stream` / `clear_stream` move one stream between services.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
@@ -57,6 +66,7 @@ import torch
 
 from repro_torch.core.sparse import SlotMap, SparseLayout, SparseStreamState
 from repro_torch.core.state import FingerState
+from repro_torch.distributed.sharding import DeviceGrid, Sharded, each
 from repro_torch.engine.stream import (CKPT_KIND, StreamEngine,
                                        restore_stacked_state, stack_deltas,
                                        state_tree)
@@ -68,10 +78,16 @@ from repro_torch.serving import migrate
 from repro_torch.serving.config import ServiceConfig, ServiceConfigError
 from repro_torch.serving.ingest import IngestError, make_ingestor
 from repro_torch.serving.migrate import CompactionReport, LayoutMigrationError
-from repro_torch.serving.plans import ExecutionPlan, PlanCache, build_plan
+from repro_torch.serving.plans import (ExecutionPlan, MultiPodPlan,
+                                       PlanCache, build_plan)
 from repro_torch.train.checkpoint import save_checkpoint
 
 State = Union[FingerState, SparseStreamState]
+Placed = Union[State, Sharded]  # one stacked state, or one a shard
+
+
+def _first(states: Placed) -> State:
+    return states.parts[0] if isinstance(states, Sharded) else states
 
 
 class ServiceLifecycleError(RuntimeError):
@@ -120,10 +136,11 @@ class WarmupHandle:
 @dataclasses.dataclass(frozen=True)
 class TickReport:
     """One completed `poll`: the tick index and its (B,) scores, still
-    on the device."""
+    on the device (a `Sharded` of per-shard scores under the sharded
+    placements)."""
 
     step: int
-    scores: torch.Tensor
+    scores: Union[torch.Tensor, Sharded]
 
 
 class FingerService:
@@ -131,7 +148,7 @@ class FingerService:
     `open`."""
 
     def __init__(self, config: ServiceConfig, plan: ExecutionPlan,
-                 states: State, step: int = 0,
+                 states: Placed, step: int = 0,
                  remaps: Optional[Dict[int, np.ndarray]] = None,
                  remaps_gen: Optional[Dict[int, np.ndarray]] = None,
                  slot_maps: Optional[List[SlotMap]] = None):
@@ -143,7 +160,7 @@ class FingerService:
             # Slot-space serving: the device capacity is the state's
             # SparseLayout; config.n_pad is the virtual addressing bound
             # the per-stream SlotMaps enforce on the host.
-            self._capacity = states.layout
+            self._capacity = _first(states).layout
             if (self._capacity.n_slots, self._capacity.m_pad) != \
                     (config.n_slots, config.m_pad):
                 raise ServiceConfigError(
@@ -166,7 +183,8 @@ class FingerService:
                     f"(method={config.method!r})")
             self._capacity = None
             self._slot_maps = None
-            self._layout = states.layout if states.layout is not None \
+            layout = _first(states).layout
+            self._layout = layout if layout is not None \
                 else NodeLayout(config.n_pad)
             if self._layout.n_pad != config.n_pad:
                 raise ServiceConfigError(
@@ -182,28 +200,41 @@ class FingerService:
         self._closed = False
 
     def _make_ingestor(self):
-        return make_ingestor(self._config, self._plan.device, self._remaps,
+        return make_ingestor(self._config, self._plan, self._remaps,
                              self._remaps_gen,
                              generation=self._layout.generation)
 
+    @staticmethod
+    def _build_plan(config: ServiceConfig, device: Device,
+                    grid: Optional[DeviceGrid]) -> ExecutionPlan:
+        if grid is not None:
+            if device is not None:
+                raise ServiceConfigError(
+                    "pass grid= (the sharded placements) or device=, "
+                    "not both: the grid names every shard's device")
+            return build_plan(config, grid)
+        return build_plan(config, resolve_device(device))
+
     @classmethod
     def open(cls, config: ServiceConfig, graphs: Sequence,
-             device: Device = None) -> "FingerService":
+             device: Device = None,
+             grid: Optional[DeviceGrid] = None) -> "FingerService":
         """Validate the config, build its plan, and place the initial
         stacked state from B host graphs (`DenseGraph` or `EdgeList`)
-        on ``device`` (``None`` is CUDA).
+        on ``device`` (``None`` is CUDA), or split over ``grid`` under
+        the sharded placements (a sharded placement given only a device
+        gets `plans.default_grid`).
 
         Under ``method="sparse_tick"``, ``graphs`` may be any iterable
         and is consumed one graph at a time (a virtual-space graph's
         node mask alone is n_pad floats); its count is checked once it
         is used up."""
         config.validate()
-        device = resolve_device(device)
         if config.method != "sparse_tick":
             graphs = list(graphs)
             cls._check_graphs(config, len(graphs),
                               [g.n_nodes for g in graphs])
-        plan = build_plan(config, device)
+        plan = cls._build_plan(config, device, grid)
         if config.method == "sparse_tick":
             count = [0]
 
@@ -216,12 +247,13 @@ class FingerService:
             capacity = SparseLayout(n_slots=config.n_slots,
                                     m_pad=config.m_pad)
             states, slot_maps = StreamEngine.init_sparse_states(
-                checked(), capacity, n_virtual=config.n_pad, device=device)
+                checked(), capacity, n_virtual=config.n_pad, device="cpu")
             cls._check_graphs(config, count[0], [])
-            return cls(config, plan, states, slot_maps=slot_maps)
+            return cls(config, plan, plan.place(states),
+                       slot_maps=slot_maps)
         states = StreamEngine.init_states(graphs, n_pad=config.n_pad,
-                                          device=device)
-        return cls(config, plan, states)
+                                          device="cpu")
+        return cls(config, plan, plan.place(states))
 
     @staticmethod
     def _check_graphs(config: ServiceConfig, count: Optional[int],
@@ -239,10 +271,12 @@ class FingerService:
 
     @classmethod
     def restore(cls, config: ServiceConfig, directory: Optional[str] = None,
-                device: Device = None) -> "FingerService":
+                device: Device = None,
+                grid: Optional[DeviceGrid] = None) -> "FingerService":
         """Resume from the latest checkpoint under ``directory`` (default:
         the config's checkpoint directory) on ``device`` (``None`` is
-        CUDA). Either package's checkpoints restore here.
+        CUDA) or over ``grid``, as `open` places. Either package's
+        checkpoints restore here, whatever placement saved them.
 
         A checkpoint taken under an older `NodeLayout` is walked forward
         through the migrations journaled in the directory's layout log
@@ -250,13 +284,12 @@ class FingerService:
         reaches ``config.n_pad``, and the ingestion grace tables are
         rebuilt from the journal."""
         config.validate()
-        device = resolve_device(device)
         ckpt_dir = directory or config.checkpoint.directory
         if ckpt_dir is None:
             raise ServiceConfigError(
                 "restore: no checkpoint directory — pass one or set "
                 "ServiceConfig.checkpoint.directory")
-        plan = build_plan(config, device)
+        plan = cls._build_plan(config, device, grid)
         states, step, meta = restore_stacked_state(
             ckpt_dir, exact_smax=config.exact_smax, method=config.method)
         if config.method == "sparse_tick":
@@ -294,7 +327,7 @@ class FingerService:
         remaps_gen = migrate.prune_generation_remaps(
             migrate.remaps_by_generation(recs), gen,
             config.grace_generations)
-        return cls(config, plan, states.to(device), step=step,
+        return cls(config, plan, plan.place(states), step=step,
                    remaps=remaps, remaps_gen=remaps_gen)
 
     @classmethod
@@ -333,7 +366,7 @@ class FingerService:
                     "never shrink")
             if sm.n_virtual < config.n_pad:
                 sm.grow_virtual(config.n_pad)  # a host-only repad
-        return cls(config, plan, states.to(plan.device), step=step,
+        return cls(config, plan, plan.place(states), step=step,
                    slot_maps=slot_maps)
 
     # -- introspection ---------------------------------------------------
@@ -347,6 +380,7 @@ class FingerService:
 
     @property
     def device(self) -> torch.device:
+        """The device of the first shard (the only one when local)."""
         return self._plan.device
 
     @property
@@ -378,8 +412,9 @@ class FingerService:
         """Ingested ticks not yet consumed by `poll`."""
         return len(self._ingestor)
 
-    def states(self) -> State:
-        """The live stacked state (device-resident; read-only use)."""
+    def states(self) -> Placed:
+        """The live stacked state (device-resident; read-only use): a
+        `Sharded` of per-shard states under the sharded placements."""
         return self._states
 
     # -- serving loop ----------------------------------------------------
@@ -475,7 +510,7 @@ class FingerService:
         return deltas
 
     def finish_pool_tick(self, scores: torch.Tensor,
-                         states: State) -> TickReport:
+                         states: Placed) -> TickReport:
         """Absorb one pool-stacked launch's result for this service: its
         (B,) scores and updated stacked state. The same bookkeeping as
         `poll`, the periodic checkpoint included."""
@@ -489,19 +524,28 @@ class FingerService:
         self._check_open("scores")
         if self._last_scores is None:
             return None
-        return self._last_scores.cpu().numpy()
+        return self._plan.gather(self._last_scores).numpy()
 
-    def top_anomalies(self, k: Optional[int] = None
+    def top_anomalies(self, k: Optional[int] = None, per_pod: bool = False
                       ) -> Tuple[np.ndarray, np.ndarray]:
         """The k highest-scoring streams of the latest tick:
         ``(values, stream_ids)``, each (k,), descending (lower stream id
-        first on ties)."""
+        first on ties) — or (n_pods, k) with ``per_pod=True`` under the
+        multipod placement. A sharded plan merges each shard's top k,
+        never the (B,) scores."""
         self._check_open("top_anomalies")
         if self._last_scores is None:
             raise ServiceLifecycleError(
                 "top_anomalies before the first completed tick")
         k = self._config.topk.k if k is None else k
-        vals, ids = self._plan.topk(self._last_scores, k)
+        if per_pod:
+            if not isinstance(self._plan, MultiPodPlan):
+                raise ServiceConfigError(
+                    "per_pod top-k needs placement='multipod', got "
+                    f"{self._config.placement!r}")
+            vals, ids = self._plan.pod_topk(self._last_scores, k)
+        else:
+            vals, ids = self._plan.topk(self._last_scores, k)
         return vals.cpu().numpy(), ids.cpu().numpy()
 
     def score_at(self, slot: int) -> Optional[float]:
@@ -511,7 +555,7 @@ class FingerService:
         self._require_slot(slot, "score_at")
         if self._last_scores is None:
             return None
-        return float(self._last_scores[int(slot)])
+        return self._plan.score_at(self._last_scores, slot)
 
     # -- stream-slot hooks (the fleet's shard-facing surface) ------------
     def _require_slot(self, slot: int, what: str) -> None:
@@ -584,17 +628,17 @@ class FingerService:
         """Checkpoint the stacked state (atomic write, the config's prune
         policy) in the reference's format; returns its path. Sparse
         services write their `SlotMap`s' JSON into the manifest beside
-        the slot capacities. Waits for the device's streams first: the
-        ticks update the state in place."""
+        the slot capacities. A sharded state is gathered to the host
+        first. Waits for the devices' streams first: the ticks update
+        the state in place."""
         self._check_open("save")
         ckpt_dir = directory or self._config.checkpoint.directory
         if ckpt_dir is None:
             raise ServiceConfigError(
                 "save: ServiceConfig.checkpoint.directory is None and "
                 "no directory was passed — declare one in the config")
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        states = self._states
+        self._plan.synchronize()
+        states = self._plan.gather(self._states)
         sparse = self._config.method == "sparse_tick"
         meta = {
             "kind": CKPT_KIND,
@@ -631,13 +675,14 @@ class FingerService:
     def _swap_plan(self, config: ServiceConfig) -> None:
         """Install the plan of ``config``: the warm one when
         `warm_next_layouts` predicted it, a cold one otherwise."""
+        where = self._plan.where
         self._config = config
         if config.plan_cache.enabled:
-            self._plan = self._plan_cache.get(config, self.device)
+            self._plan = self._plan_cache.get(config, where)
         else:
-            self._plan = build_plan(config, self.device)
+            self._plan = build_plan(config, where)
 
-    def _install_migration(self, states: FingerState,
+    def _install_migration(self, states: Placed,
                            new_layout: NodeLayout, pending) -> None:
         """Common tail of repad/compact: swap config, plan and layout,
         rebuild the ingestor, and queue the ticks again (the caller has
@@ -647,7 +692,7 @@ class FingerService:
         self._states = states
         self._ingestor = self._make_ingestor()
         for deltas in pending:
-            self._ingestor.put(deltas)
+            self._ingestor.requeue(deltas)
 
     def _take_pending_migrated(self, transform) -> List[GraphDelta]:
         """Drain the queue through ``transform`` (the migration's delta
@@ -656,14 +701,14 @@ class FingerService:
         back and the migration aborts with the service as it was."""
         pending = self._ingestor.take_all()
         try:
-            return [transform(d) for d in pending]
+            return [each(transform, d) for d in pending]
         except LayoutMigrationError:
             for d in pending:
-                self._ingestor.put(d)
+                self._ingestor.requeue(d)
             raise
 
     def _commit_shrink(self, new_layout: NodeLayout,
-                       states_new: FingerState,
+                       states_new: Placed,
                        index_map: np.ndarray) -> None:
         """Commit a shrink (compact or repad truncation) whose new state
         is already computed (the transforms make new tensors, so nothing
@@ -847,7 +892,7 @@ class FingerService:
         self._states = states
         self._ingestor = self._make_ingestor()
         for d in pending:
-            self._ingestor.put(d)
+            self._ingestor.requeue(d)
         return new_capacity
 
     # -- warm plans ------------------------------------------------------
@@ -869,7 +914,7 @@ class FingerService:
         ``round(n_pad * growth_factor)`` and, with ``warm_compact``, the
         live-slot count. Returns the warmed targets. With
         ``background=True`` the warm runs on a thread of its own, on its
-        own CUDA stream and dummy state, and a `WarmupHandle` is
+        own CUDA streams and dummy state, and a `WarmupHandle` is
         returned; ``wait()`` on it before any migration.
         """
         self._check_open("warm_next_layouts")
@@ -884,13 +929,20 @@ class FingerService:
             return self._warm_targets(targets)
 
         def run() -> list:
-            if self.device.type != "cuda":
+            cuda = [d for d in self._plan.devices if d.type == "cuda"]
+            if not cuda:
                 return self._warm_targets(targets)
-            with torch.cuda.device(self.device):
-                stream = torch.cuda.Stream(self.device)
-                with torch.cuda.stream(stream):
-                    warmed = self._warm_targets(targets, stream)
-                stream.synchronize()
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(torch.cuda.device(self.device))
+                # a side stream of each device made current: the warm's
+                # ticks and its waits run there, never on the serving
+                # streams
+                streams = [torch.cuda.Stream(d) for d in cuda]
+                for stream in streams:
+                    stack.enter_context(torch.cuda.stream(stream))
+                warmed = self._warm_targets(targets)
+                for stream in streams:
+                    stream.synchronize()
                 return warmed
 
         return WarmupHandle(run)
@@ -913,11 +965,11 @@ class FingerService:
                 targets.append(n_live)
         return targets
 
-    def _warm_targets(self, targets: Sequence,
-                      stream: Optional[torch.cuda.Stream] = None) -> list:
+    def _warm_targets(self, targets: Sequence) -> list:
         """The loop of `warm_next_layouts` (inline, or on the warming
-        thread with its ``stream``)."""
-        dummy = self._states.map_tensors(torch.zeros_like)
+        thread with its streams current)."""
+        dummy = each(lambda st: st.map_tensors(torch.zeros_like),
+                     self._states)
         warmed = []
         if self._config.method == "sparse_tick":
             cap = self._capacity
@@ -928,8 +980,7 @@ class FingerService:
                     continue
                 new_capacity = cap.grown(n_slots=n_slots, m_pad=m_pad)
                 cfg = self._config.with_(n_slots=n_slots, m_pad=m_pad)
-                self._plan_cache.warm(cfg, self.device, new_capacity,
-                                      stream)
+                self._plan_cache.warm(cfg, self._plan.where, new_capacity)
                 migrate.grow_sparse_stacked(dummy, new_capacity)
                 warmed.append((n_slots, m_pad))
             return warmed
@@ -941,7 +992,7 @@ class FingerService:
             new_layout = self._layout.grown(target) if target > n_pad \
                 else self._layout.compacted(target)
             self._plan_cache.warm(self._config.with_(n_pad=target),
-                                  self.device, new_layout, stream)
+                                  self._plan.where, new_layout)
             if target > n_pad:
                 migrate.grow_stacked(dummy, new_layout)
             else:
@@ -960,8 +1011,7 @@ class FingerService:
         other method raises `ServiceLifecycleError` afterwards."""
         if self._closed:
             return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._plan.synchronize()
         self._ingestor.drain()
         self._closed = True
 

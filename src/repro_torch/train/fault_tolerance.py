@@ -1,29 +1,65 @@
-"""Fault tolerance: resume and straggler monitoring.
+"""Fault tolerance: resume, elastic restore and straggler monitoring.
 
-The port's copy of `repro.train.fault_tolerance` for one device:
+The port's copy of `repro.train.fault_tolerance`:
 
 - **Resume**: `latest_checkpoint` + deterministic (seed, step) data
   mean a preempted job restarts where it stopped, minus the in-flight
   step.
+- **Elastic restore**: a checkpoint holds host arrays by pytree name,
+  whatever devices saved it; `elastic_restore` places them on the
+  devices it is given (one device, or a tree of devices in the
+  template's structure), where the reference places them under a new
+  mesh's shardings. A job may resume on other devices than it saved
+  from.
 - **Straggler mitigation**: a per-step time EWMA with a z-score flag;
   the launcher feeds it each step's time on the card.
-
-The reference's `elastic_restore` re-shards onto a TPU mesh and waits
-for the multi-GPU port (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Mapping
 
+from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.train.checkpoint import latest_checkpoint, restore_checkpoint
 
 
-def maybe_resume(ckpt_dir: str, template):
-    """(tree, step) from the latest checkpoint, or (None, 0)."""
+def _place(tree, devices):
+    """``tree``'s tensors moved to ``devices``: one device for a whole
+    (sub)tree, or a tree of devices that mirrors ``tree`` down to where
+    a single device covers the rest."""
+    if not isinstance(devices, (Mapping, tuple)):
+        dev = resolve_device(devices)
+        if isinstance(tree, Mapping):
+            return {k: _place(v, dev) for k, v in tree.items()}
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return type(tree)(*(_place(v, dev) for v in tree))
+        return tree.to(dev)
+    if isinstance(tree, Mapping):
+        return {k: _place(v, devices[k]) for k, v in tree.items()}
+    return type(tree)(*(_place(getattr(tree, f), getattr(devices, f))
+                        for f in tree._fields))
+
+
+def elastic_restore(ckpt_path: str, template, devices):
+    """Restore a checkpoint onto ``devices`` (a device, or a tree of
+    devices in ``template``'s structure): (tree, manifest). The
+    template only gives the structure and shapes; it may lie anywhere,
+    e.g. on the CPU."""
+    tree, manifest = restore_checkpoint(ckpt_path, template)
+    return _place(tree, devices), manifest
+
+
+def maybe_resume(ckpt_dir: str, template, devices=None):
+    """(tree, step) from the latest checkpoint, or (None, 0); with
+    ``devices``, restored there by `elastic_restore`, else onto the
+    template's devices."""
     path = latest_checkpoint(ckpt_dir)
     if path is None:
         return None, 0
-    tree, manifest = restore_checkpoint(path, template)
+    if devices is not None:
+        tree, manifest = elastic_restore(path, template, devices)
+    else:
+        tree, manifest = restore_checkpoint(path, template)
     return tree, int(manifest["step"])
 
 

@@ -8,9 +8,12 @@ batch is split along its leading axis and the gradients accumulate in
 ``acc_dtype`` over a loop, as the reference's ``lax.scan`` does, then
 scale by 1/m; the loss is the mean of the microbatch losses.
 
-``compress_grads=True`` is refused by name until
-`distributed/compression.py` is ported (ROADMAP Queue 1 item 9).
-Serving steps wait for the decode path (item 10).
+With ``compress_grads=True`` the step is ``(params, opt_state,
+residuals, batch) → (params, opt_state, residuals, metrics)``: the
+gradients pass through `distributed.compression.compress_with_feedback`
+(int8 with error feedback, the residuals carried from step to step)
+before the update, as in the reference. Serving steps wait for the
+decode path (ROADMAP Queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.compression import compress_with_feedback
 from repro_torch.models.api import build_loss_fn
 from repro_torch.models.params import flatten_names, unflatten_names
 from repro_torch.optim.adamw import AdamWConfig, apply_update
@@ -28,12 +32,9 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                      compress_grads: bool = False, remat: bool = True,
                      n_microbatches: int = 1,
                      acc_dtype: torch.dtype = torch.float32):
-    """(params, opt_state, batch) → (params, opt_state, metrics)."""
-    if compress_grads:
-        raise NotImplementedError(
-            "build_train_step(compress_grads=True): gradient compression "
-            "(distributed/compression.py) is not ported to repro_torch yet "
-            "(ROADMAP Queue 1 item 9)")
+    """(params, opt_state, batch) → (params, opt_state, metrics); with
+    ``compress_grads``, (params, opt_state, residuals, batch) →
+    (params, opt_state, residuals, metrics)."""
     if n_microbatches < 1:
         raise ValueError(f"n_microbatches={n_microbatches} must be >= 1")
     loss_fn = build_loss_fn(cfg, remat=remat)
@@ -71,6 +72,17 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         inv = 1.0 / m
         return torch.stack(losses).mean(), unflatten_names(
             {k: g * inv for k, g in acc.items()})
+
+    if compress_grads:
+        def compressed_step(params, opt_state, residuals, batch):
+            loss, grads = grads_of(params, batch)
+            grads, residuals = compress_with_feedback(grads, residuals)
+            params, opt_state, metrics = apply_update(
+                params, grads, opt_state, opt_cfg)
+            metrics["loss"] = loss
+            return params, opt_state, residuals, metrics
+
+        return compressed_step
 
     def train_step(params, opt_state, batch):
         loss, grads = grads_of(params, batch)

@@ -183,7 +183,7 @@ def test_pinned_slots_reused_while_the_caller_overwrites_its_arrays(cuda):
         svcs[(str(cuda), "sync")]
     ticks = _ticks(9, seed=4)
     buf = ticks[0].map_tensors(torch.clone)
-    ring = db._ingestor._slots
+    ring = db._ingestor._stagers[0]._slots
     assert len(ring) == 3
     ptrs = []
     for t, d in enumerate(ticks):

@@ -77,7 +77,10 @@ def test_import_every_submodule_loads_no_jax_and_no_repro():
               "repro_torch.fleet.config", "repro_torch.fleet.directory",
               "repro_torch.fleet.errors", "repro_torch.fleet.fleet",
               "repro_torch.fleet.pooltick", "repro_torch.fleet.rebalance",
-              "repro_torch.fleet.recovery", "repro_torch.fleet.router")
+              "repro_torch.fleet.recovery", "repro_torch.fleet.router",
+              "repro_torch.distributed", "repro_torch.distributed.sharding",
+              "repro_torch.distributed.finger_dist",
+              "repro_torch.distributed.compression")
     assert set(ported) <= set(names)
     code = ("import importlib, sys\n"
             f"for m in {names!r}: importlib.import_module(m)\n"
@@ -150,6 +153,16 @@ def test_cuda_requests_raise_without_cuda(monkeypatch):
                            method="sparse_tick", n_slots=8, m_pad=32)
     with pytest.raises(RuntimeError, match="is_available"):
         FingerService.open(sparse, iter([g]))
+    # the sharded placements: the default grid is every card
+    from repro_torch.distributed import make_grid
+
+    for placement in ("sharded", "multipod"):
+        with pytest.raises(RuntimeError, match="is_available"):
+            FingerService.open(cfg.with_(placement=placement), [g])
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_grid((2,), ("data",))
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_grid((2,), ("data",), "cuda:0")
     from repro_torch.fleet import (FingerFleet, FleetConfig, PoolSpec,
                                    replay_tenant)
 

@@ -180,13 +180,27 @@ def test_top_k_ties_keep_the_lower_stream_id_first():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(placement="sharded"),
-    dict(placement="multipod"),
     dict(compilation_cache_dir="cache"),
 ])
 def test_options_not_yet_ported_raise_by_name(kw):
     with pytest.raises(ServiceConfigError, match="not yet ported"):
         ServiceConfig(**_config(TopKSpec, **kw)).validate()
+
+
+@pytest.mark.parametrize("placement", ["sharded", "multipod"])
+def test_sharded_placements_validate_like_the_reference(placement):
+    """Ported (`tests/test_torch_sharded_serving.py` serves them): both
+    packages accept the placement, and refuse it on the same shard
+    counts."""
+    import repro_torch.serving as tserving
+
+    for mod in (jserving, tserving):
+        cfg = mod.ServiceConfig(**_config(mod.TopKSpec,
+                                          placement=placement))
+        cfg.validate()
+        cfg.validate(num_shards=1)
+        with pytest.raises(mod.ServiceConfigError, match="divide evenly"):
+            cfg.validate(num_shards=cfg.batch_size + 1)
 
 
 @pytest.mark.parametrize("kw", [

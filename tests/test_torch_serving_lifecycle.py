@@ -258,11 +258,13 @@ class TestBitExactRegression:
     def test_make_ingestor_picks_by_config(self):
         from repro_torch.serving.ingest import (DoubleBufferedIngestor,
                                                 SyncIngestor, make_ingestor)
+        from repro_torch.serving.plans import build_plan
 
-        cfg = ServiceConfig(batch_size=2, n_pad=8, k_pad=2)
-        dev = torch.device("cpu")
-        assert type(make_ingestor(cfg, dev)) is DoubleBufferedIngestor
-        assert type(make_ingestor(cfg.with_(ingestion="sync"), dev)) \
+        cfg = ServiceConfig(batch_size=2, n_pad=8, k_pad=2,
+                            topk=TopKSpec(k=1))
+        plan = build_plan(cfg, torch.device("cpu"))
+        assert type(make_ingestor(cfg, plan)) is DoubleBufferedIngestor
+        assert type(make_ingestor(cfg.with_(ingestion="sync"), plan)) \
             is SyncIngestor
 
 

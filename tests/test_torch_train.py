@@ -324,13 +324,10 @@ def test_unported_architectures_refuse_by_name(name):
     from repro_torch.models.api import build_loss_fn, model_param_defs
 
     cfg = pt_base.get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
         model_param_defs(cfg)
     with pytest.raises(NotImplementedError, match="not ported"):
         build_loss_fn(cfg)
-    with pytest.raises(NotImplementedError, match="compression"):
-        pt_build_train_step(pt_base.get_config("qwen1.5-0.5b").reduced(),
-                            pt_adamw.AdamWConfig(), compress_grads=True)
 
 
 def test_launcher_cpu_smoke_runs_both_probes():
