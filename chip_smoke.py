@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed S] [--batch B]
 
 Run from the root of a checkout; it imports `repro_torch` from
-``src/`` and never JAX or the JAX package. Nine phases, each printing a
+``src/`` and never JAX or the JAX package. Ten phases, each printing a
 line of its own; any failure exits non-zero:
 
 1. build   — the hand-written kernels from ``src/repro_torch/csrc/``,
@@ -240,10 +240,33 @@ line of its own; any failure exits non-zero:
              finite residuals), and `elastic_restore` of phase 6's
              checkpoint onto the card from a CPU template, bit-identical
              with a copy phase 6 took at its save.
+10. paper  — the twins of the paper scripts and the examples on the
+             card at the reference's settings, each through the entry
+             point a user calls, its output printed indented:
+             ``benchmarks_torch`` fig1 (N = 600, 3 trials), fig2, fig4
+             and table2 (table3 is left out: phase 7 runs its
+             criterion), fig1 and table2 again on CPU tensors;
+             ``examples_torch`` quickstart, anomaly_detection,
+             serve_streams with ``--method fused_tick`` and then
+             ``sparse_tick`` (256 streams × 128 nodes, ``SERVE_TICKS`` =
+             20 ticks), ``--fleet --ticks 6``, and
+             train_with_entropy_probe ``--steps 10`` (the reduced
+             granite-moe-3b-a800m; probe steps 0 and 5). Checks: every
+             twin prints the reference's row names in order with finite
+             numbers; fig1's AE and table2's PCC and SRCC on the card
+             within ``PAPER_TOL`` = 2e-4 of the CPU's (the CPU tests'
+             tolerance); ``stream_tick`` launched once a tick under
+             ``fused_tick`` and ``sparse_tick`` once a tick under
+             ``sparse_tick``, no other kernel; the fleet demo ends in
+             ``PARITY OK``; ``vnge_q`` and both ``entropy_probe``
+             kernels launched by the training example's probe steps.
+             Prints fig1's CTRR range, fig2's trends and each fig4 and
+             table2 method's seconds a graph pair.
 
 Each phase prints its seconds. Every wrapper's launch count is set to 0
 just before phases 3 (and again before its lifecycle part), 4, 5, 6,
-7, 8 and each part of 9 and read just after each path; a kernel's
+7, 8, each part of 9 and each kernel-reaching example of 10 and read
+just after each path; a kernel's
 ``launches`` in the kernels line is the sum over those paths. Kernel
 times are CUDA-event means of the launch each path makes, at its shapes and inputs: ``stream_tick`` in
 place on a copy of a main-path tick's state restored before every call,
@@ -345,6 +368,11 @@ SHARDS, PODS, SP_SHARDS, DIST_RANKS = 4, (2, 2), 2, 2
 # phase 9 feeds its placements the ticks phase 3 fed after its first
 # checkpoint: the loop's LOOP_T, then the traced pair and the repad's
 PH9_TICKS, PH9_REPAD_TICKS, PH9_SPARSE_TICKS = LOOP_T, 3, 3
+# phase 10: the paper-script and example twins at the reference's
+# settings; fig1 and table2 also on the CPU (their AE and PCC/SRCC must
+# agree with the card's within the CPU tests' tolerance, PAPER_TOL)
+PAPER_TOL = 2e-4
+SERVE_TICKS, FLEET_DEMO_TICKS, PROBE_TRAIN_STEPS = 20, 6, 10
 CHECKED = ("bsr_spmv", "delta_stats", "entropy_probe", "sparse_tick",
            "stream_tick", "vnge_q")
 SP_FIELDS = ("q", "s_total", "s_max", "strengths", "node_mask",
@@ -3636,6 +3664,199 @@ def compressed_steps(args, torch, out, dev):
     torch.cuda.empty_cache()
 
 
+def paper_row_names() -> dict:
+    """The reference scripts' row names, by twin (`benchmarks/*.py`)."""
+    return {
+        "fig1": [f"fig1/{m}/d{d}/{h}" for m in ("ER", "BA", "WS")
+                 for d in (6, 20, 50) for h in ("Hhat", "Htilde", "Hexact")],
+        "fig2": [f"fig2/{m}/{n}" for m in ("ER", "BA", "WS")
+                 for n in ("n200", "n400", "n800", "trend")],
+        "fig4": [f"fig4/{m}" for m in ("FINGER-JS(Fast)", "DeltaCon",
+                                       "lambda(Lap)", "VEO")],
+        "table2": [f"table2/{m}" for m in (
+            "FINGER-JS(Fast)", "DeltaCon", "RMD", "lambda(Adj)",
+            "lambda(Lap)", "GED", "VNGE-NL", "VNGE-GL", "VEO", "cosine(deg)",
+            "Bhattacharyya(deg)", "Hellinger(deg)", "FINGER-JS(Inc)")],
+    }
+
+
+def captured(fn, *fn_args, **fn_kw):
+    """(fn's result, its standard output); the output is also printed,
+    indented, for a reader."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*fn_args, **fn_kw)
+    text = buf.getvalue()
+    for line in text.strip("\n").splitlines():
+        print(f"    | {line}")
+    return result, text
+
+
+def derived_fields(rows) -> dict:
+    """{row name: {key: value}} of CSV rows (name, seconds, derived);
+    a numeric value parsed, ``%`` dropped."""
+    out = {}
+    for name, _, derived in rows:
+        fields = {}
+        for part in derived.split(";"):
+            key, eq, value = part.partition("=")
+            if not eq:
+                continue
+            try:
+                fields[key] = float(value.rstrip("%"))
+            except ValueError:
+                fields[key] = value
+        out[name] = fields
+    return out
+
+
+def check_paper_rows(label, rows, want) -> None:
+    """The twin printed the reference's row names in order, every time
+    and every numeric field finite."""
+    import numpy as np
+
+    names = [r[0] for r in rows]
+    if names != want:
+        raise AssertionError(f"{label}: rows {names} != the reference's "
+                             f"{want}")
+    for name, seconds, _ in rows:
+        if not np.isfinite(seconds):
+            raise AssertionError(f"{label}: {name} took {seconds} s")
+    for name, fields in derived_fields(rows).items():
+        bad = {k: v for k, v in fields.items()
+               if isinstance(v, float) and not np.isfinite(v)}
+        if bad:
+            raise AssertionError(f"{label}: {name} has {bad}")
+
+
+def check_card_vs_cpu(label, card, cpu, keys) -> float:
+    """The card's ``keys`` fields within PAPER_TOL of the CPU's; returns
+    the largest difference."""
+    a, b = derived_fields(card), derived_fields(cpu)
+    worst = 0.0
+    for name, fields in a.items():
+        for key in keys:
+            if key in fields:
+                worst = max(worst, abs(fields[key] - b[name][key]))
+    print(f"  {label}: {'/'.join(keys)} card vs CPU max |diff| "
+          f"{worst:.1e} (bound {PAPER_TOL:g})")
+    if worst > PAPER_TOL:
+        raise AssertionError(f"{label}: card vs CPU differ by {worst}")
+    return worst
+
+
+def per_pair(rows, prefix: str) -> str:
+    """Seconds a graph pair of each method row, for the printout."""
+    return ", ".join(f"{name[len(prefix):]} {sec * 1e3:.2f} ms"
+                     for name, sec, _ in rows)
+
+
+def phase_paper(args, torch, out, dev):
+    """Phase 10: the paper-script twins (``benchmarks_torch/``) and the
+    example twins (``examples_torch/``) on the card at the reference's
+    settings."""
+    import tempfile
+
+    import numpy as np
+
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
+    from benchmarks_torch import (fig1_degree, fig2_size, fig4_bifurcation,
+                                  table2_wiki)
+    from examples_torch import (anomaly_detection, quickstart,
+                                serve_streams, train_with_entropy_probe)
+
+    cpu = torch.device("cpu")
+    want = paper_row_names()
+    took = []
+
+    def part(name, fn, *fn_args, **fn_kw):
+        t0 = time.perf_counter()
+        result = captured(fn, *fn_args, **fn_kw)
+        took.append(f"{name} {time.perf_counter() - t0:.1f} s")
+        return result
+
+    rows, _ = part("fig1", fig1_degree.run, device=dev)
+    check_paper_rows("fig1", rows, want["fig1"])
+    cpu_rows, _ = part("fig1 CPU", fig1_degree.run, device=cpu)
+    check_card_vs_cpu("fig1", rows, cpu_rows, ("AE",))
+    f = derived_fields(rows)
+    ctrr = {h: [f[n]["CTRR"] for n in f if n.endswith(h)]
+            for h in ("Hhat", "Htilde")}
+    print(f"  fig1 CTRR on the card, N={fig1_degree.N}: Hhat "
+          f"{min(ctrr['Hhat']):.1f}..{max(ctrr['Hhat']):.1f} %, Htilde "
+          f"{min(ctrr['Htilde']):.1f}..{max(ctrr['Htilde']):.1f} %")
+
+    rows, _ = part("fig2", fig2_size.run, device=dev)
+    check_paper_rows("fig2", rows, want["fig2"])
+    trends = {n: d for n, _, d in rows if n.endswith("trend")}
+    print(f"  fig2 trends: {trends}")
+
+    rows, _ = part("fig4", fig4_bifurcation.run, device=dev)
+    check_paper_rows("fig4", rows, want["fig4"])
+    print(f"  fig4 seconds a graph pair: {per_pair(rows, 'fig4/')}")
+
+    rows, _ = part("table2", table2_wiki.run, device=dev)
+    check_paper_rows("table2", rows, want["table2"])
+    cpu_rows, _ = part("table2 CPU", table2_wiki.run, device=cpu)
+    check_card_vs_cpu("table2", rows, cpu_rows, ("PCC", "SRCC"))
+    print(f"  table2 seconds a graph pair: {per_pair(rows, 'table2/')}")
+
+    scores, text = part("quickstart", quickstart.main, dev)
+    if not (len(scores) == 10 and np.isfinite(scores).all()
+            and text.count("JSdist =") == 10 and "<-- burst" in text):
+        raise AssertionError(f"quickstart: scores {scores}")
+    detected, text = part("anomaly_detection", anomaly_detection.main, dev)
+    if text.count("detected transition") != 5:
+        raise AssertionError("anomaly_detection: lines missing")
+    print(f"  anomaly_detection detected transitions: {detected}")
+
+    for method, kernel in (("fused_tick", "stream_tick"),
+                           ("sparse_tick", "sparse_tick")):
+        zero_counts()
+        res, text = part(f"serve_streams {method}", serve_streams.main,
+                         ["--method", method, "--ticks", str(SERVE_TICKS)])
+        counts = read_counts(out)
+        launched = {k: v for k, v in counts.items() if v}
+        word = "DETECTED" if res["hit"] else "MISSED"
+        print(f"  serve_streams --method {method}: {word}, launches "
+              f"{launched}")
+        if launched != {kernel: SERVE_TICKS}:
+            raise AssertionError(f"serve_streams {method}: launches "
+                                 f"{launched}, want {kernel} once a tick")
+        if not (np.isfinite(res["scores"]).all()
+                and text.strip().splitlines()[-1] in ("DETECTED",
+                                                      "MISSED")):
+            raise AssertionError(f"serve_streams {method}: {text[-300:]}")
+    res, text = part("serve_streams --fleet", serve_streams.main,
+                     ["--fleet", "--ticks", str(FLEET_DEMO_TICKS)])
+    if not (res["ok"] and text.strip().splitlines()[-1] == "PARITY OK"):
+        raise AssertionError(f"serve_streams --fleet: {text[-300:]}")
+
+    (root / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root / "build",
+                                     prefix="probe_ckpt_") as ckpt:
+        zero_counts()
+        history, text = part(
+            "train_with_entropy_probe", train_with_entropy_probe.main,
+            ["--steps", str(PROBE_TRAIN_STEPS), "--ckpt-dir", ckpt])
+        counts = read_counts(out)
+    launched = {k: v for k, v in counts.items() if v}
+    print(f"  train_with_entropy_probe: launches {launched}")
+    probe_steps = [h["step"] for h in history if "attn_entropy_mean" in h]
+    if (len(history) != PROBE_TRAIN_STEPS
+            or not np.isfinite([h["loss"] for h in history]).all()
+            or probe_steps != [0, 5] or "routing-graph JS" not in text
+            or not (counts["vnge_q"] and counts["row_stats"]
+                    and counts["graph_stats"])):
+        raise AssertionError(f"train_with_entropy_probe: {launched}, "
+                             f"probe steps {probe_steps}")
+    print("  phase 10 by part: " + ", ".join(took))
+
+
 def print_row(r: dict) -> None:
     """One kernel's row of the kernels line, for a reader."""
     floor = f", one empty launch {r['empty_launch_ms']:.4f} ms" \
@@ -3737,6 +3958,9 @@ def main() -> int:
         start("sharded", "phase 9 sharded and multipod placements, "
                          "distributed FINGER, gradient compression:")
         phase_sharded(args, torch, out, dev)
+        start("paper", "phase 10 the paper's figures and tables and the "
+                       "examples (benchmarks_torch/, examples_torch/):")
+        phase_paper(args, torch, out, dev)
         for r in rows:  # rows built before a later path count it too
             r["launches"] = out["launches"][r["name"]]
         start("done", "")

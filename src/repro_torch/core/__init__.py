@@ -13,6 +13,7 @@ from repro_torch.core.state import FingerState, finger_state
 from repro_torch.core.incremental import (
     delta_stats,
     delta_stats_compact,
+    h_tilde_after,
     update_state,
 )
 from repro_torch.core.jsdist import (
@@ -40,7 +41,7 @@ from repro_torch.core.sparse import (
 
 __all__ = [
     "exact_vnge", "quadratic_q", "vnge_hat", "vnge_tilde", "strength_stats",
-    "FingerState", "finger_state", "update_state",
+    "FingerState", "finger_state", "update_state", "h_tilde_after",
     "delta_stats", "delta_stats_compact",
     "average_graph", "js_distance", "jsdist_fast",
     "jsdist_exact", "jsdist_tilde", "jsdist_incremental", "jsdist_stream",

@@ -17,10 +17,15 @@ from typing import Union
 
 import torch
 
+from repro_torch.core.vnge import strength_stats
 from repro_torch.graphs.spectral import power_iteration_lmax
 from repro_torch.graphs.types import DenseGraph, EdgeList
 
 Graph = Union[DenseGraph, EdgeList]
+
+# `strength_stats` is importable from here, as from the reference's
+# module.
+__all__ = ["cubic_q", "spectral_moments_3", "strength_stats", "vnge_hat3"]
 
 
 def spectral_moments_3(g: DenseGraph):

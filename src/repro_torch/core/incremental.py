@@ -46,6 +46,7 @@ __all__ = [
     "delta_stats_compact",
     "delta_stats_from_sorted",
     "gate_delta_for_update",
+    "h_tilde_after",
     "sorted_delta_endpoints",
     "update_state",
 ]
@@ -226,3 +227,10 @@ def update_state(state: FingerState, delta: GraphDelta,
         s_max=s_max_new, strengths=strengths_new, node_mask=mask_new,
         layout=state.layout)
 
+
+def h_tilde_after(state: FingerState, delta: GraphDelta,
+                  exact_smax: bool = False, method: str = "dense"):
+    """eq. (3): (H̃(G ⊕ ΔG), the updated state), in O(Δn + Δm)."""
+    new_state = update_state(state, delta, exact_smax=exact_smax,
+                             method=method)
+    return new_state.h_tilde(), new_state

@@ -16,7 +16,7 @@ import torch
 from repro_torch.core.vnge import (c_from_s_total, h_tilde_from_stats,
                                    strength_stats)
 from repro_torch.graphs.layout import NodeLayout
-from repro_torch.graphs.types import DenseGraph, EdgeList
+from repro_torch.graphs.types import DenseGraph, EdgeList, _n_active
 
 Graph = Union[DenseGraph, EdgeList]
 
@@ -35,6 +35,17 @@ class FingerState:
     @property
     def c(self) -> torch.Tensor:
         return c_from_s_total(self.s_total)
+
+    @property
+    def n_pad(self) -> int:
+        """The (trailing) node-layout size of the carried strengths."""
+        return int(self.strengths.shape[-1])
+
+    def n_active(self) -> torch.Tensor:
+        """Number of live node slots (the layout size when unmasked),
+        int32 over the leading axes."""
+        return _n_active(self.node_mask, self.strengths.shape[:-1],
+                         self.n_pad, self.strengths.device)
 
     def tensors(self) -> dict:
         """The tensor fields by name (an absent mask left out)."""

@@ -107,6 +107,15 @@ def on_device(obj, device: Device):
     return obj.to(resolve_device(device))
 
 
+def _n_active(node_mask: Optional[torch.Tensor], lead, n: int,
+              device) -> torch.Tensor:
+    """Live node slots, int32 over the leading axes ``lead``: the layout
+    size ``n`` where ``node_mask`` is None."""
+    if node_mask is None:
+        return torch.full(lead, n, dtype=torch.int32, device=device)
+    return node_mask.sum(-1).to(torch.int32)
+
+
 def _resolve_layout_args(n_nodes: int, n_pad, node_mask, layout, kind: str):
     resolved, mask = NodeLayout.resolve(n_nodes, n_pad, node_mask,
                                         layout=layout, kind=kind)
@@ -128,8 +137,21 @@ class DenseGraph:
     node_mask: Optional[torch.Tensor] = None
 
     @property
+    def n(self) -> int:
+        return self.n_nodes
+
+    @property
+    def n_pad(self) -> int:
+        return self.n_nodes
+
+    @property
     def layout(self) -> NodeLayout:
         return NodeLayout(self.n_nodes)
+
+    def n_active(self) -> torch.Tensor:
+        """Live node slots (``n_nodes`` when unmasked), int32."""
+        return _n_active(self.node_mask, self.weights.shape[:-2],
+                         self.n_nodes, self.weights.device)
 
     def masked_weights(self) -> torch.Tensor:
         if self.node_mask is None:
@@ -189,8 +211,29 @@ class EdgeList:
     node_mask: Optional[torch.Tensor] = None  # (..., n) 0/1
 
     @property
+    def n(self) -> int:
+        return self.n_nodes
+
+    @property
+    def n_pad(self) -> int:
+        return self.n_nodes
+
+    @property
     def layout(self) -> NodeLayout:
         return NodeLayout(self.n_nodes)
+
+    @property
+    def m_pad(self) -> int:
+        return int(self.senders.shape[-1])
+
+    def n_active(self) -> torch.Tensor:
+        """Live node slots (``n_nodes`` when unmasked), int32."""
+        return _n_active(self.node_mask, self.senders.shape[:-1],
+                         self.n_nodes, self.senders.device)
+
+    def n_edges(self) -> torch.Tensor:
+        """Valid edge slots, int32."""
+        return self.mask.sum(-1).to(torch.int32)
 
     def masked_weights(self) -> torch.Tensor:
         """Edge weights, zero on padding and on edges touching an
@@ -225,6 +268,19 @@ class EdgeList:
             node_mask=None if self.node_mask is None
             else self.node_mask.to(device))
 
+    def pad_to(self, n_pad: Union[int, NodeLayout]) -> "EdgeList":
+        """Embed into an n_pad layout (edge arrays unchanged); new slots
+        are inactive."""
+        layout = n_pad if isinstance(n_pad, NodeLayout) \
+            else NodeLayout(int(n_pad))
+        n = self.n_nodes
+        if layout.n_pad < n:
+            raise ValueError(f"pad_to: n_pad={layout.n_pad} < n_nodes={n}")
+        mask = layout.embed_mask(self.node_mask, n, self.weights.dtype,
+                                 self.weights.device)
+        return dataclasses.replace(self, n_nodes=layout.n_pad,
+                                   node_mask=mask)
+
     def to_dense(self) -> DenseGraph:
         """Single-graph (unbatched) dense view."""
         w = self.masked_weights()
@@ -236,6 +292,18 @@ class EdgeList:
         a.index_put_((s, r), w, accumulate=True)
         a.index_put_((r, s), w, accumulate=True)
         return DenseGraph(weights=a, n_nodes=n, node_mask=self.node_mask)
+
+    @staticmethod
+    def from_dense(g: DenseGraph, m_pad: Optional[int] = None) -> "EdgeList":
+        """Host-side conversion of one dense graph: its nonzero upper
+        triangle in row-major order, padded to ``m_pad``; CPU tensors."""
+        w = g.masked_weights().detach().cpu().numpy()
+        iu, ju = np.triu_indices(g.n_nodes, k=1)
+        nz = w[iu, ju] != 0.0
+        node_mask = None if g.node_mask is None else g.node_mask.cpu()
+        return EdgeList.from_arrays(iu[nz], ju[nz], w[iu, ju][nz],
+                                    g.n_nodes, m_pad=m_pad,
+                                    node_mask=node_mask)
 
     @staticmethod
     def from_arrays(senders, receivers, weights, n_nodes: int,
@@ -294,6 +362,39 @@ class GraphDelta:
     node_flag: Optional[torch.Tensor] = None  # (..., j_pad) float32
     layout_generation: Optional[int] = None
     edge_slots: Optional[torch.Tensor] = None  # (..., k_pad) int32
+
+    @property
+    def n(self) -> int:
+        return self.n_nodes
+
+    @property
+    def n_pad(self) -> int:
+        return self.n_nodes
+
+    @property
+    def layout(self) -> NodeLayout:
+        """The layout the delta is addressed in (generation 0 when
+        unstamped)."""
+        return NodeLayout(self.n_nodes,
+                          generation=self.layout_generation or 0)
+
+    @property
+    def has_node_slots(self) -> bool:
+        return self.node_ids is not None
+
+    def delta_strengths(self, n: Optional[int] = None) -> torch.Tensor:
+        """Δs_i for all n nodes (zero off ΔV; ids outside [0, n)
+        dropped)."""
+        n = self.n_nodes if n is None else int(n)
+        dwm = self.dw * self.mask
+        ds = torch.zeros((*dwm.shape[:-1], n), dtype=dwm.dtype,
+                         device=dwm.device)
+        ds = scatter_nodes(ds, self.senders, dwm)
+        return scatter_nodes(ds, self.receivers, dwm)
+
+    def delta_s_total(self) -> torch.Tensor:
+        """ΔS = Σ_i Δs_i = 2 Σ_E Δw."""
+        return 2.0 * (self.dw * self.mask).sum(-1)
 
     def tensors(self) -> dict:
         """The tensor fields by name (absent node and edge slots left

@@ -19,3 +19,10 @@ def vnge_q_stats_ref(w: torch.Tensor) -> torch.Tensor:
     s = w.sum(1)
     return torch.stack([s.sum(), (s * s).sum(), 0.5 * (w * w).sum(),
                         s.max()])
+
+
+def q_from_stats(stats: torch.Tensor) -> torch.Tensor:
+    """Lemma 1's Q from the (…, 4) statistics ``[S, Σs², Σ_E w², s_max]``."""
+    from repro_torch.core.vnge import _lemma1_cq  # deferred: kernels ← core
+
+    return _lemma1_cq(stats[..., 0], stats[..., 1], stats[..., 2])[1]

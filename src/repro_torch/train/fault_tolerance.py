@@ -12,12 +12,16 @@ The port's copy of `repro.train.fault_tolerance`:
   mesh's shardings. A job may resume on other devices than it saved
   from.
 - **Straggler mitigation**: a per-step time EWMA with a z-score flag;
-  the launcher feeds it each step's time on the card.
+  the launcher feeds it each step's time on the card, and a caller
+  without one times a step with `start` and `stop()` on the host
+  clock, as the reference's launcher does.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections.abc import Mapping
+from typing import Optional
 
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.train.checkpoint import latest_checkpoint, restore_checkpoint
@@ -73,11 +77,21 @@ class StragglerMonitor:
     var: float = 0.0
     n: int = 0
     flagged: int = 0
+    _t0: Optional[float] = None
 
-    def stop(self, dt: float) -> bool:
-        """Fold in one step's time ``dt`` (seconds, measured by the
-        caller: on the card, CUDA events around the step); True if this
-        step is a straggler."""
+    def start(self) -> None:
+        """Start timing a step on the host clock."""
+        self._t0 = time.perf_counter()
+
+    def stop(self, dt: Optional[float] = None) -> bool:
+        """Fold in one step's time ``dt`` (seconds; measured by the
+        caller, e.g. CUDA events around the step, or, when None, the
+        host time since `start`); True if this step is a straggler."""
+        if dt is None:
+            if self._t0 is None:
+                raise RuntimeError("StragglerMonitor.stop() without dt "
+                                   "needs a start() first")
+            dt = time.perf_counter() - self._t0
         self.n += 1
         if self.n == 1:
             self.mean, self.var = dt, 0.0

@@ -14,6 +14,15 @@ are the reference test's (`tests/test_distributed.py`): q within 1e-5,
 s_max within 1e-4, s_total within 1e-6 relative, λ within 1e-3
 relative. The ranks must agree bit for bit.
 
+A node-masked copy of the graph (20 nodes masked off, and 8 extra
+lanes whose endpoints lie outside ``[0, n)``: ids n, n + 50 and -1)
+goes through the same ranks. Its oracle is the port's serial
+`finger_state` and `power_iteration_lmax` on the whole masked edge
+list, at the tolerances above: the port gates by the node mask and
+drops out-of-range ids in every path, while the reference's
+distributed functions drop the mask (ROADMAP Queue 3), so they are no
+oracle here.
+
 Compression is held to the JAX functions at 1e-6 with the
 error-feedback invariant (dequantized + new residual == gradient + old
 residual); three compressed train steps to the JAX compressed step at
@@ -83,11 +92,25 @@ st = distributed_finger_state(shard)
 info = {}
 lam = distributed_power_iteration(shard, num_iters=200, tol=1e-9,
                                   x0=g["x0"], info=info)
+mg = np.load(f"{root}/masked.npz")
+masked = EdgeList(senders=torch.from_numpy(mg["senders"]),
+                  receivers=torch.from_numpy(mg["receivers"]),
+                  weights=torch.from_numpy(mg["weights"]),
+                  mask=torch.from_numpy(mg["mask"]), n_nodes=int(mg["n"]),
+                  node_mask=torch.from_numpy(mg["node_mask"]))
+m_shard = shard_edge_list(masked, rank, world)
+m_st = distributed_finger_state(m_shard)
+m_lam = distributed_power_iteration(m_shard, num_iters=200, tol=1e-9,
+                                    x0=mg["x0"])
 dist.destroy_process_group()
 out = {"q": st.q.item(), "s_total": st.s_total.item(),
        "s_max": st.s_max.item(), "strengths": st.strengths.tolist(),
        "lam": lam.item(), "iterations": info["iterations"],
-       "shard_edges": int(shard.weights.numel())}
+       "shard_edges": int(shard.weights.numel()),
+       "masked": {"q": m_st.q.item(), "s_total": m_st.s_total.item(),
+                  "s_max": m_st.s_max.item(),
+                  "strengths": m_st.strengths.tolist(),
+                  "lam": m_lam.item()}}
 with open(f"{root}/rank_{world}_{rank}.json", "w") as f:
     json.dump(out, f)
 """
@@ -119,13 +142,37 @@ def graph():
 
 
 @pytest.fixture(scope="module")
-def ranks(graph, tmp_path_factory):
+def masked(graph):
+    """The graph as a port edge list with 20 nodes masked off and 8
+    lanes addressing ids outside [0, n) (7 valid, 1 padding)."""
+    g, _, x0 = graph
+    n = g.n_nodes
+    el = EdgeList.from_dense(DenseGraph.from_weights(np.array(g.weights)))
+    node_mask = np.ones(n, np.float32)
+    node_mask[np.random.default_rng(5).choice(n, 20, replace=False)] = 0.0
+    bad_s = np.array([n, 3, n + 50, -1, 7, n, 11, n], np.int32)
+    bad_r = np.array([4, n, 9, 12, -1, n + 1, n + 50, 2], np.int32)
+    return EdgeList(
+        senders=torch.cat([el.senders, torch.from_numpy(bad_s)]),
+        receivers=torch.cat([el.receivers, torch.from_numpy(bad_r)]),
+        weights=torch.cat([el.weights, torch.full((8,), 2.5)]),
+        mask=torch.cat([el.mask, torch.tensor([1.0] * 7 + [0.0])]),
+        n_nodes=n, node_mask=torch.from_numpy(node_mask)), x0
+
+
+@pytest.fixture(scope="module")
+def ranks(graph, masked, tmp_path_factory):
     _, el, x0 = graph
     root = tmp_path_factory.mktemp("dist")
     np.savez(root / "graph.npz", senders=np.asarray(el.senders),
              receivers=np.asarray(el.receivers),
              weights=np.asarray(el.weights), mask=np.asarray(el.mask),
              n=el.n_nodes, x0=x0)
+    mel, _ = masked
+    np.savez(root / "masked.npz", senders=mel.senders.numpy(),
+             receivers=mel.receivers.numpy(), weights=mel.weights.numpy(),
+             mask=mel.mask.numpy(), node_mask=mel.node_mask.numpy(),
+             n=mel.n_nodes, x0=x0)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
         [sys.executable, "-c", _LAUNCHER, str(root), _RANK,
@@ -181,6 +228,27 @@ def test_distributed_power_iteration_matches(ranks, serial, world):
     lam = ranks[world][0]["lam"]
     for want in (serial["lam"], serial["port_lam"]):
         assert abs(lam - want) / want < 1e-3
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_distributed_masked_graph_matches_the_serial_port(ranks, masked,
+                                                          world):
+    mel, x0 = masked
+    r = ranks[world][0]["masked"]
+    for other in ranks[world][1:]:
+        assert other["masked"] == r
+    st = finger_state(mel)
+    assert abs(r["q"] - float(st.q)) < 1e-5
+    assert abs(r["s_max"] - float(st.s_max)) < 1e-4
+    assert abs(r["s_total"] - float(st.s_total)) / float(st.s_total) < 1e-6
+    np.testing.assert_allclose(r["strengths"], st.strengths.numpy(),
+                               atol=1e-5, rtol=1e-5)
+    # masked nodes carry nothing; the out-of-range lanes added nothing
+    assert not np.asarray(r["strengths"])[mel.node_mask.numpy() == 0].any()
+    assert float(st.s_total) < float(finger_state(dataclasses.replace(
+        mel, node_mask=None)).s_total)  # the mask took weight off
+    lam = float(power_iteration_lmax(mel, num_iters=200, tol=1e-9, x0=x0))
+    assert abs(r["lam"] - lam) / lam < 1e-3
 
 
 @pytest.mark.parametrize("world", [1, 3, 4, 7])

@@ -1,10 +1,13 @@
 """The port stands alone and keeps its device rules.
 
 - Importing `repro_torch` and every submodule loads neither JAX nor any
-  module of the JAX package `repro`; neither does ``chip_smoke.py`` nor
-  the bench twin ``tools/streams_bench_torch.py``.
+  module of the JAX package `repro`; neither does ``chip_smoke.py``, the
+  bench twin ``tools/streams_bench_torch.py``, nor any file of the
+  paper-script and example twins (``benchmarks_torch/``,
+  ``examples_torch/``).
 - Asking for ``cuda`` where CUDA is unavailable raises; nothing carries
-  on quietly on the CPU.
+  on quietly on the CPU. Every twin runs on the card by default and,
+  without one, fails by name unless given ``--device cpu``.
 - On CPU tensors the kernel wrappers run their plain versions and leave
   their ``LAUNCHES`` counts unchanged, and their launchers refuse CPU
   tensors.
@@ -114,6 +117,68 @@ def test_streams_bench_twin_imports_no_jax_and_no_repro():
     mods = _imported(ROOT / "tools" / "streams_bench_torch.py")
     assert "repro_torch.serving" in mods
     assert _foreign(mods) == []
+
+
+TWIN_DIRS = ("benchmarks_torch", "examples_torch")
+
+
+def test_twins_import_no_jax_and_no_repro():
+    files = sorted(p for d in TWIN_DIRS for p in (ROOT / d).glob("*.py"))
+    names = {p.name for p in files}
+    assert {"common.py", "fig1_degree.py", "fig2_size.py",
+            "fig4_bifurcation.py", "table2_wiki.py", "table3_dos.py",
+            "run.py", "quickstart.py", "anomaly_detection.py",
+            "train_with_entropy_probe.py", "serve_streams.py"} <= names
+    for path in files:
+        mods = _imported(path)
+        assert _foreign(mods) == [], path
+        # nothing of the reference's benchmarks or examples either
+        assert not [m for m in mods
+                    if m.split(".")[0] in ("benchmarks", "examples")], path
+    code = ("import importlib, sys\n"
+            f"sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]\n"
+            + "".join(f"importlib.import_module('{p.parent.name}."
+                      f"{p.stem}')\n" for p in files)
+            + "print('\\n'.join(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, check=True).stdout.split()
+    assert _foreign(out) == []
+    assert "benchmarks_torch.run" in out and "examples_torch.serve_streams" \
+        in out
+
+
+def test_twins_fail_by_name_without_a_card(monkeypatch, tmp_path):
+    sys.path[:0] = [str(ROOT)]
+    try:
+        from benchmarks_torch import (fig1_degree, fig2_size,
+                                      fig4_bifurcation, run, table2_wiki,
+                                      table3_dos)
+        from examples_torch import (anomaly_detection, quickstart,
+                                    serve_streams,
+                                    train_with_entropy_probe)
+    finally:
+        sys.path.remove(str(ROOT))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [fig1_degree.run, fig2_size.run, fig4_bifurcation.run,
+             table2_wiki.run, table3_dos.run, lambda: run.main([]),
+             quickstart.main, anomaly_detection.main,
+             lambda: train_with_entropy_probe.main(
+                 ["--steps", "1", "--ckpt-dir", str(tmp_path)]),
+             lambda: serve_streams.main([]),
+             lambda: serve_streams.main(["--fleet"])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+    # the scripts as a user starts them, with no card visible
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    for argv in (["-m", "benchmarks_torch.run", "--only", "fig4"],
+                 [str(ROOT / "examples_torch" / "quickstart.py")]):
+        proc = subprocess.run([sys.executable, *argv], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert "torch.cuda.is_available() is False" in proc.stderr
+        assert "fig4/" not in proc.stdout and "graph:" not in proc.stdout
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

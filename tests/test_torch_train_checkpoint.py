@@ -138,10 +138,32 @@ def test_resume_reproduces_training(tmp_path):
                                    rtol=1e-5, atol=1e-5)
 
 
-def test_straggler_monitor_matches_the_reference():
+def test_straggler_monitor_matches_the_reference(monkeypatch):
+    import time
+
     from repro.train.fault_tolerance import StragglerMonitor as JaxMonitor
 
     times = [0.1, 0.11, 0.1, 0.12, 0.1, 0.5, 0.1, 0.1, 0.9]
     a, b = StragglerMonitor(), JaxMonitor()
     assert [a.stop(dt) for dt in times] == [b.stop(dt) for dt in times]
     assert (a.flagged, a.mean, a.var) == (b.flagged, b.mean, b.var)
+    # start() / stop() with no argument time the step on the host clock:
+    # a clock that advances by each step's time between the two calls
+    now = [1000.0]
+
+    def clock():
+        return now[0]
+
+    monkeypatch.setattr(time, "perf_counter", clock)
+    flags = {}
+    for name, mon in (("port", StragglerMonitor()), ("jax", JaxMonitor())):
+        got = []
+        for dt in times:
+            mon.start()
+            now[0] += dt
+            got.append(mon.stop())
+        flags[name] = (got, mon.flagged, mon.mean, mon.var, mon.n)
+    assert flags["port"] == flags["jax"]
+    assert flags["port"][1] > 0
+    with pytest.raises(RuntimeError, match="start"):
+        StragglerMonitor().stop()
