@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--seed S] [--batch B]
 
 Run from the root of a checkout; it imports `repro_torch` from
-``src/`` and never JAX or the JAX package. Ten phases, each printing a
-line of its own; any failure exits non-zero:
+``src/`` and never JAX or the JAX package. Eleven phases, each printing
+a line of its own; any failure exits non-zero:
 
 1. build   — the hand-written kernels from ``src/repro_torch/csrc/``,
              one ``nvcc`` per source, started together.
@@ -262,11 +262,36 @@ line of its own; any failure exits non-zero:
              kernels launched by the training example's probe steps.
              Prints fig1's CTRR range, fig2's trends and each fig4 and
              table2 method's seconds a graph pair.
+11. models — the model stack through the entry points a user calls, at
+             full width: qwen1.5-0.5b (the serve launcher's default
+             arch) served by `launch.serve.serve_batch` with the
+             reference's bf16 cache at the launcher's defaults (4
+             prompts × 16 + 32 new tokens) and at 64 × 128 + 128,
+             printing tokens/s and the median ms of a decode step
+             (CUDA events, 20 steps); mamba2-130m (batch 8 × 1024),
+             whisper-small (4 × 448 tokens + 1500 encoder frames) and
+             internvl2-1b (4 × 768 tokens after its 256 frontend
+             embeddings) each 3 steps of `launch.train.run` (probes on
+             steps 0 and 2) and served at the launcher's defaults;
+             jamba-1.5-large-398b the same, reduced (`cfg.reduced()`:
+             one full-width MoE layer's experts hold 38.7 GB in f32).
+             Checks for each family: decode over an f32 cache equals
+             the prefill on 16 tokens within 2e-3 (whisper: against
+             `decode_train` on an encoder output of zeros, the zero
+             cross-KV's counterpart); a sound step (finite losses and
+             gradient norms, every leaf off its init, both moments of
+             every leaf off 0); served tokens of the expected shape in
+             [0, vocab); ``row_stats`` and ``graph_stats`` launched once
+             a probe step by internvl2-1b and jamba, ``vnge_q`` three
+             times by jamba's second routing graph, and no kernel by
+             serving or by mamba2 and whisper training. Prints each
+             family's parameters, losses, step ms, peak memory and
+             launches.
 
 Each phase prints its seconds. Every wrapper's launch count is set to 0
 just before phases 3 (and again before its lifecycle part), 4, 5, 6,
-7, 8, each part of 9 and each kernel-reaching example of 10 and read
-just after each path; a kernel's
+7, 8, each part of 9, each kernel-reaching example of 10 and each
+serve and train path of 11, and read just after each path; a kernel's
 ``launches`` in the kernels line is the sum over those paths. Kernel
 times are CUDA-event means of the launch each path makes, at its shapes and inputs: ``stream_tick`` in
 place on a copy of a main-path tick's state restored before every call,
@@ -373,6 +398,18 @@ PH9_TICKS, PH9_REPAD_TICKS, PH9_SPARSE_TICKS = LOOP_T, 3, 3
 # agree with the card's within the CPU tests' tolerance, PAPER_TOL)
 PAPER_TOL = 2e-4
 SERVE_TICKS, FLEET_DEMO_TICKS, PROBE_TRAIN_STEPS = 20, 6, 10
+# phase 11: the model stack. The serve launcher's defaults (batch, prompt,
+# new tokens), qwen1.5-0.5b's large serve, and the trained families
+# (arch, batch, tokens); internvl2's 768 tokens follow its 256 frontend
+# embeddings, 1024 positions in all (the reference's input_specs: the
+# chunked attention needs the chunks to divide the sequence); jamba runs
+# reduced (see phase_models)
+SERVE_ARCH, SERVE_DEFAULTS, SERVE_BIG = "qwen1.5-0.5b", (4, 16, 32), \
+    (64, 128, 128)
+MODEL_TRAIN = (("mamba2-130m", 8, 1024), ("whisper-small", 4, 448),
+               ("internvl2-1b", 4, 768), ("jamba-1.5-large-398b", 4, 256))
+MODEL_STEPS, MODEL_PROBE_EVERY, MODEL_LR = 3, 2, 1e-3
+GATE_TOKENS, GATE_TOL = 16, 2e-3  # the reference's decode == prefill
 CHECKED = ("bsr_spmv", "delta_stats", "entropy_probe", "sparse_tick",
            "stream_tick", "vnge_q")
 SP_FIELDS = ("q", "s_total", "s_max", "strengths", "node_mask",
@@ -1953,7 +1990,7 @@ def phase_train(args, torch, out, dev):
     print(f"  checkpoint of {len(a)} arrays ({nbytes / 1e9:.3f} GB, step "
           f"{int(opt_state.step)}) saved in {c1 - c0:.1f} s, "
           f"{on_disk / 1e9:.3f} GB on disk (phase 9 restores it)")
-    saved = map_tree_leaves(tree, torch.clone)
+    saved = map_tree(torch.clone, tree)
     del tree, a
 
     # determinism: a second run from the same seed repeats every loss
@@ -3131,15 +3168,6 @@ def fleet_rows(torch, out):
     return rows
 
 
-def map_tree_leaves(tree, fn):
-    """``fn`` on every tensor of a tree of dicts and NamedTuples."""
-    if isinstance(tree, dict):
-        return {k: map_tree_leaves(v, fn) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(map_tree_leaves(v, fn) for v in tree))
-    return fn(tree)
-
-
 def phase_sharded(args, torch, out, dev):
     """Phase 9: the sharded and multipod placements against the local
     one, sharded sparse serving, distributed FINGER and gradient
@@ -3592,7 +3620,7 @@ def compressed_steps(args, torch, out, dev):
 
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.distributed import init_residuals
-    from repro_torch.models.params import flatten_names
+    from repro_torch.models.params import flatten_names, map_tree
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.fault_tolerance import elastic_restore
     from repro_torch.train.step import build_train_step
@@ -3643,8 +3671,8 @@ def compressed_steps(args, torch, out, dev):
           f"{res_norm:.4g}; no kernel launched")
     del before, residuals, params, opt_state
 
-    template = map_tree_leaves(saved, lambda x: torch.empty_like(
-        x, device="cpu"))
+    template = map_tree(lambda x: torch.empty_like(x, device="cpu"),
+                        saved)
     t0 = time.perf_counter()
     back, manifest = elastic_restore(path, template, dev)
     torch.cuda.synchronize()
@@ -3857,6 +3885,242 @@ def phase_paper(args, torch, out, dev):
     print("  phase 10 by part: " + ", ".join(took))
 
 
+def model_config(name: str):
+    """A phase-11 family's config and the cut it takes, if any."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(name)
+    if name.startswith("jamba"):
+        # one MoE layer's 16 experts hold 16 x 3 x 8192 x 24576 = 9.66 G
+        # parameters, 38.7 GB in f32: the full width waits for the
+        # model-sharding rules across cards
+        return cfg.reduced(), (
+            "reduced (cfg.reduced(): 8 layers, d_model 128, 4 experts): at "
+            "full width one MoE layer's experts hold 9.66 G parameters, "
+            "38.7 GB in f32, so the 72 layers need several cards")
+    return cfg, None
+
+
+def decode_gate(torch, cfg, params, dev, seed: int) -> float:
+    """Decode over an f32 cache against the prefill on GATE_TOKENS tokens
+    (whisper: `decode_train` on an encoder output of zeros, the zero
+    cross-KV's counterpart); the largest difference, gated at GATE_TOL."""
+    from repro_torch.models import whisper
+    from repro_torch.models.api import (build_decode_fn, build_forward_fn,
+                                        init_cache_arrays)
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    toks = torch.randint(0, cfg.vocab_size, (2, GATE_TOKENS),
+                         generator=gen, device=dev)
+    with torch.no_grad():
+        if cfg.is_encoder_decoder:
+            enc = torch.zeros((2, cfg.encoder_seq, cfg.d_model), device=dev)
+            full = whisper.decode_train(params, toks, enc, cfg)
+        else:
+            full = build_forward_fn(cfg)(params, {"tokens": toks})
+        cache = init_cache_arrays(cfg, 2, GATE_TOKENS, dev, torch.float32)
+        dec = build_decode_fn(cfg)
+        steps = []
+        for i in range(GATE_TOKENS):
+            logits, cache = dec(params, toks[:, i:i + 1], cache, i)
+            steps.append(logits[:, 0])
+    v = cfg.vocab_size
+    got, want = torch.stack(steps, 1)[..., :v], full[..., :v]
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=GATE_TOL, atol=GATE_TOL):
+        raise AssertionError(f"{cfg.name}: decode over an f32 cache "
+                             f"differs from the prefill by {err}")
+    return err
+
+
+def served(torch, cfg, params, dev, shape, out, seed: int):
+    """`serve_batch` at (batch, prompt, new) with the reference's bf16
+    cache: (tokens, seconds); the tokens gated in range, no kernel
+    launched."""
+    from repro_torch.launch.serve import serve_batch
+
+    b, prompt, new = shape
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
+                            device=dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    seqs = serve_batch(cfg, params, prompts, new, cache_len=prompt + new,
+                       device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launched = {k: n for k, n in read_counts(out).items() if n}
+    if tuple(seqs.shape) != (b, prompt + new) or seqs.dtype != torch.int32 \
+            or int(seqs.min()) < 0 or int(seqs.max()) >= cfg.vocab_size \
+            or not torch.equal(seqs[:, :prompt], prompts.to(torch.int32)):
+        raise AssertionError(f"{cfg.name}: served tokens {seqs.shape} "
+                             f"{seqs.dtype} outside [0, {cfg.vocab_size})")
+    if launched:
+        raise AssertionError(f"{cfg.name}: serving launched {launched}")
+    return seqs, dt
+
+
+def decode_step_ms(torch, cfg, params, dev, shape) -> list:
+    """CUDA-event ms of 20 serve steps at (batch, cache length) after 3
+    warm-up steps; the cost does not depend on the position (every slot
+    is read and masked)."""
+    from repro_torch.models.api import init_cache_arrays
+    from repro_torch.train.step import build_serve_step
+
+    b, prompt, new = shape
+    cache = init_cache_arrays(cfg, b, prompt + new, dev)
+    serve = build_serve_step(cfg)
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+    times = []
+    for t in range(23):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tok, _, cache = serve(params, tok, cache, t)
+        end.record()
+        end.synchronize()
+        if t >= 3:
+            times.append(start.elapsed_time(end))
+    return times
+
+
+def trained(torch, cfg, dev, batch: int, seq: int, out, seed: int):
+    """3 steps of `launch.train.run` with probes on steps 0 and 2: the
+    sound-step gate (finite losses and gradient norms, every leaf off its
+    init, both moments of every leaf off 0) → (params, history, launch
+    counts)."""
+    import numpy as np
+
+    from repro_torch.launch.train import run
+    from repro_torch.models.api import model_param_defs
+    from repro_torch.models.params import flatten_names, init_params
+
+    zero_counts()
+    params, opt_state, history = run(
+        cfg, steps=MODEL_STEPS, batch_size=batch, seq=seq,
+        probe_every=MODEL_PROBE_EVERY, seed=seed, lr=MODEL_LR,
+        log=lambda *a: None, device=dev)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in read_counts(out).items() if n}
+    losses = [h["loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    if not np.isfinite(losses + norms).all() \
+            or int(opt_state.step) != MODEL_STEPS:
+        raise AssertionError(f"{cfg.name}: losses {losses}, grad norms "
+                             f"{norms}, step {int(opt_state.step)}")
+    init = flatten_names(init_params(
+        model_param_defs(cfg),
+        torch.Generator(device=dev).manual_seed(seed), device=dev))
+    stale = [k for k, p in flatten_names(params).items()
+             if torch.equal(p, init[k])]
+    for name, tree in (("mu", opt_state.mu), ("nu", opt_state.nu)):
+        stale += [f"{name}/{k}" for k, m in flatten_names(tree).items()
+                  if not bool(m.any())]
+    if stale:
+        raise AssertionError(f"{cfg.name}: {MODEL_STEPS} steps left "
+                             f"{len(stale)} leaves as initialized: "
+                             f"{stale[:8]}")
+    del init, opt_state
+    return params, history, counts
+
+
+def phase_models(args, torch, out, dev):
+    """Phase 11: the model stack on the card: decode and the serve
+    launcher, the SSM mixer, the encoder-decoder and the vision stub."""
+    import numpy as np
+
+    from repro_torch.models.api import model_param_defs
+    from repro_torch.models.params import count_params, init_params
+
+    def header(cfg, cut):
+        n = count_params(model_param_defs(cfg))
+        print(f"  {cfg.name}: {n / 1e6:.1f} M parameters, "
+              f"{cfg.n_layers} layers, d_model {cfg.d_model}"
+              + (f"; {cut}" if cut else " (full width)"))
+
+    def peak(name):
+        print(f"  {name} peak torch.cuda.max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # the serve launcher's default arch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, _ = model_config(SERVE_ARCH)
+    header(cfg, None)
+    params = init_params(model_param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(args.seed),
+                         device=dev)
+    err = decode_gate(torch, cfg, params, dev, args.seed)
+    print(f"  {cfg.name} decode (f32 cache) vs prefill, {GATE_TOKENS} "
+          f"tokens: max |diff| {err:.3e} (gate {GATE_TOL})")
+    for shape in (SERVE_DEFAULTS, SERVE_BIG):
+        b, prompt, new = shape
+        seqs, dt = served(torch, cfg, params, dev, shape, out, args.seed)
+        ms = decode_step_ms(torch, cfg, params, dev, shape)
+        print(f"  {cfg.name} serve_batch batch {b}, prompt {prompt}, "
+              f"{new} new (bf16 cache of {prompt + new}): {dt:.3f} s, "
+              f"{b * (prompt + new) / dt:.1f} tokens/s fed and decoded, "
+              f"{b * new / dt:.1f} new tokens/s")
+        print(f"  {cfg.name} decode step at batch {b}, cache "
+              f"{prompt + new} (CUDA events, 20 steps): median "
+              f"{float(np.median(ms)):.3f} ms, min {min(ms):.3f} ms")
+    print(f"  {cfg.name} first new tokens: "
+          f"{seqs[0, SERVE_BIG[1]:SERVE_BIG[1] + 16].tolist()}")
+    peak(cfg.name)
+    del params
+
+    for name, batch, seq in MODEL_TRAIN:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, cut = model_config(name)
+        header(cfg, cut)
+        params, history, counts = trained(torch, cfg, dev, batch, seq, out,
+                                          args.seed)
+        want = {}
+        if name.startswith(("internvl2", "jamba")):
+            probes = len(range(0, MODEL_STEPS, MODEL_PROBE_EVERY))
+            want = {"row_stats": probes, "graph_stats": probes}
+            if cfg.n_experts:  # the routing tracker from the 2nd graph
+                want["vnge_q"] = 3 * (probes - 1)
+        if counts != want:
+            raise AssertionError(f"{name}: training launched {counts}, "
+                                 f"want {want}")
+        front = cfg.n_frontend_tokens if cfg.frontend == "vision_stub" \
+            else 0
+        step_ms = [h["step_ms"] for h in history]
+        print(f"  {name} train: batch {batch} x {seq} tokens"
+              + (f" + {front} frontend embeddings" if front else "")
+              + (f" + {cfg.encoder_seq} encoder frames"
+                 if cfg.is_encoder_decoder else "")
+              + f", {MODEL_STEPS} steps, losses "
+              + " ".join(f"{h['loss']:.4f}" for h in history)
+              + ", grad norms "
+              + " ".join(f"{h['grad_norm']:.4g}" for h in history))
+        print(f"  {name} step ms (CUDA events): "
+              + " ".join(f"{x:.1f}" for x in step_ms)
+              + f"; median {float(np.median(step_ms)):.1f}; launches "
+              f"{counts}")
+        probed = [(h["step"], k, round(h[k], 6)) for h in history
+                  for k in ("attn_entropy_mean", "routing_jsdist")
+                  if k in h]
+        if probed:
+            print(f"  {name} probes (step, name, value): {probed}")
+        err = decode_gate(torch, cfg, params, dev, args.seed)
+        print(f"  {name} decode (f32 cache) vs prefill, {GATE_TOKENS} "
+              f"tokens: max |diff| {err:.3e} (gate {GATE_TOL})")
+        seqs, dt = served(torch, cfg, params, dev, SERVE_DEFAULTS, out,
+                          args.seed)
+        b, prompt, new = SERVE_DEFAULTS
+        print(f"  {name} serve_batch at the launcher's defaults: "
+              f"{dt:.3f} s, {b * (prompt + new) / dt:.1f} tokens/s; "
+              f"first new tokens {seqs[0, prompt:prompt + 8].tolist()}")
+        peak(name)
+        del params
+
+
 def print_row(r: dict) -> None:
     """One kernel's row of the kernels line, for a reader."""
     floor = f", one empty launch {r['empty_launch_ms']:.4f} ms" \
@@ -3901,6 +4165,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     dev = torch.device("cuda")
     out = {}
@@ -3961,6 +4226,9 @@ def main() -> int:
         start("paper", "phase 10 the paper's figures and tables and the "
                        "examples (benchmarks_torch/, examples_torch/):")
         phase_paper(args, torch, out, dev)
+        start("models", "phase 11 the model stack (decode and the serve "
+                        "launcher, mamba2, whisper, internvl2, jamba):")
+        phase_models(args, torch, out, dev)
         for r in rows:  # rows built before a later path count it too
             r["launches"] = out["launches"][r["name"]]
         start("done", "")

@@ -16,7 +16,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import Device, resolve_device
-from repro_torch.models.transformer import check_ported
 
 
 def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, seed: int,
@@ -24,13 +23,25 @@ def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, seed: int,
                     ) -> Dict[str, torch.Tensor]:
     """{tokens, labels} (batch, seq) int64: Markov-ish tokens with
     learnable structure, drawn on the host and moved to ``device``
-    (``None`` is CUDA)."""
-    check_ported(cfg)
+    (``None`` is CUDA). An encoder–decoder config adds ``frames``
+    (batch, encoder_seq, d_model) and the vision stub ``extra_embeds``
+    (batch, n_frontend_tokens, d_model): standard normals times 0.02,
+    f32, from the same generator."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed((int(seed) << 32) + int(step))
     v_eff = min(cfg.vocab_size, 64)
     base = torch.randint(0, v_eff, (batch, seq + 1), generator=gen)
     mask = torch.rand((batch, seq + 1), generator=gen) < 0.75
     toks = torch.where(mask, torch.roll(base, 1, dims=1), base)
-    return {"tokens": toks[:, :-1].to(device),
-            "labels": toks[:, 1:].to(device)}
+    out = {"tokens": toks[:, :-1].to(device),
+           "labels": toks[:, 1:].to(device)}
+    front = None
+    if cfg.is_encoder_decoder:
+        front = "frames", cfg.encoder_seq
+    elif cfg.frontend == "vision_stub":
+        front = "extra_embeds", cfg.n_frontend_tokens
+    if front is not None:
+        key, n = front
+        out[key] = (torch.randn((batch, n, cfg.d_model), generator=gen)
+                    * 0.02).to(device)
+    return out

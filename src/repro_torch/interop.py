@@ -11,10 +11,14 @@ format in both packages). A `BsrMatrix` crosses as ``{"values",
 "col_ids"}`` plus its ``(n, n_orig)``. Model parameters cross as a nested dict of
 numpy arrays with the reference's keys (the JAX parameter pytree after
 ``np.asarray`` on each leaf), and an AdamW state as
-``{"step", "mu", "nu"}`` of the same. This is how the tests feed the
-JAX package's state, deltas, parameters and optimizer state into the
-port and the port's back, and it imports nothing of either package
-beyond the port itself.
+``{"step", "mu", "nu"}`` of the same. A decode cache crosses as
+nested dicts with the reference's keys: a `KVCache` as ``{"k", "v"}``,
+an `SsmState` as ``{"s", "conv"}`` (whisper's cache is ``{"self",
+"cross"}`` of KV dicts), each leaf in its own dtype (a bf16 leaf as an
+``ml_dtypes`` bfloat16 array, the dtype JAX's ``np.asarray`` gives).
+This is how the tests feed the JAX package's state, deltas, parameters,
+optimizer state and caches into the port and the port's back, and it
+imports nothing of either package beyond the port itself.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ from repro_torch.graphs.layout import NodeLayout
 from repro_torch.graphs.types import GraphDelta
 from repro_torch.kernels.bsr_spmv.ref import BsrMatrix
 from repro_torch.kernels.dispatch import Device, resolve_device
+from repro_torch.models.attention import KVCache
+from repro_torch.models.mamba2 import SsmState
 from repro_torch.models.params import map_tree
 from repro_torch.optim.adamw import AdamWState
 
@@ -173,3 +179,50 @@ def bsr_to_numpy(m: BsrMatrix) -> Tuple[dict, int, int]:
     arrays, n, n_orig)."""
     return ({"values": m.values.detach().cpu().numpy(),
              "col_ids": m.col_ids.detach().cpu().numpy()}, m.n, m.n_orig)
+
+
+def _leaf_from_numpy(x, device: torch.device) -> torch.Tensor:
+    a = np.ascontiguousarray(x)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: carry the bits
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def cache_from_numpy(tree: Mapping, device: Device = None) -> dict:
+    """A reference decode cache as nested dicts of numpy arrays (``{"k",
+    "v"}`` → `KVCache`, ``{"s", "conv"}`` → `SsmState`) → the port's
+    cache on ``device`` (``None`` is CUDA), every leaf's dtype kept."""
+    device = resolve_device(device)
+
+    def conv(node):
+        if set(node) == {"k", "v"}:
+            return KVCache(k=_leaf_from_numpy(node["k"], device),
+                           v=_leaf_from_numpy(node["v"], device))
+        if set(node) == {"s", "conv"}:
+            return SsmState(s=_leaf_from_numpy(node["s"], device),
+                            conv=_leaf_from_numpy(node["conv"], device))
+        return {k: conv(v) for k, v in node.items()}
+
+    return conv(tree)
+
+
+def cache_to_numpy(cache: Mapping) -> dict:
+    """The port's decode cache → nested dicts of numpy arrays with the
+    reference's keys (`cache_from_numpy`'s inverse)."""
+    def conv(node):
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return {f: _leaf_to_numpy(getattr(node, f))
+                    for f in node._fields}
+        return {k: conv(v) for k, v in node.items()}
+
+    return conv(cache)

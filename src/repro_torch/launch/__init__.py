@@ -1,1 +1,1 @@
-"""Entry points: the training launcher."""
+"""Entry points: the training and serving launchers."""

@@ -14,7 +14,10 @@ step's time on the card (CUDA events around the step function) or on
 the host clock on the CPU, which also feeds the straggler monitor. On
 CUDA the attention probe launches the ``entropy_probe`` kernels and
 the routing tracker the ``vnge_q`` kernel (three launches an update
-after the first graph). Float32 matmuls run without TF32.
+after the first graph); an attention-free model has no attention
+probe, a model without experts no routing graph, and an
+encoder–decoder runs neither (as in the reference). Float32 matmuls
+run without TF32.
 ``--compress-grads`` (``compress=True``) trains with int8
 error-feedback gradient compression, its residuals carried across
 steps, as the reference's launcher does.
@@ -66,6 +69,8 @@ def run(cfg, steps: int, batch_size: int, seq: int, ckpt_dir=None,
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
     defs = model_param_defs(cfg)
     log(f"model {cfg.name}: {count_params(defs)/1e6:.1f}M params")
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -104,7 +109,8 @@ def run(cfg, steps: int, batch_size: int, seq: int, ckpt_dir=None,
         rec = {"step": step, "loss": float(metrics["loss"]),
                "grad_norm": float(metrics["grad_norm"]),
                "straggler": straggler, "step_ms": ms}
-        if probe_every and step % probe_every == 0:
+        if probe_every and step % probe_every == 0 \
+                and not cfg.is_encoder_decoder:
             ent = attention_entropy_probe(params, batch["tokens"], cfg,
                                           probe_len=min(seq, 128))
             if ent is not None:

@@ -1,1 +1,2 @@
-"""Model definitions of the train path (dense and MoE decoders)."""
+"""Model definitions: the decoder families (dense, MoE, SSM, hybrid,
+vision stub), the whisper encoder-decoder, and decode."""

@@ -1,26 +1,28 @@
-"""Attention for the train path: GQA projections and chunked attention.
+"""Attention: GQA projections, chunked attention (train/prefill) and
+cached decode attention.
 
-The port's copy of the train/prefill part of `repro.models.attention`
-for one device: no head padding (the reference pads query heads only to
-a tensor-parallel degree above 1) and no sharding constraints.
-`flash_attention` repeats the reference's chunked online softmax
-(q chunks of 2048, kv chunks of 1024, every chunk pair computed and
-masked with -1e30, the GQA expansion by the q-head → kv-head map) in
-plain torch ops, as the reference computes it in jnp outside any Pallas
-kernel. Decode attention and `KVCache` are not ported yet (ROADMAP
-Queue 1 item 2).
+The port's copy of `repro.models.attention` for one device: no head
+padding (the reference pads query heads only to a tensor-parallel
+degree above 1) and no sharding constraints. `flash_attention` repeats
+the reference's chunked online softmax (q chunks of 2048, kv chunks of
+1024, every chunk pair computed and masked with -1e30, the GQA
+expansion by the q-head → kv-head map) and `decode_attention` its
+one-token attention against a `KVCache`, both in plain torch ops, as
+the reference computes them in jnp outside any Pallas kernel.
+`KVCache.logical_axes` (the TPU mesh's cache sharding) waits for the
+model-sharding rules (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_rope, softcap
-from repro_torch.models.params import PDef
+from repro_torch.models.params import PDef, TensorSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,3 +156,75 @@ def attention_block(p, x: torch.Tensor, positions: torch.Tensor,
     o = flash_attention(q, k, v, attn_dims(cfg), causal=causal,
                         window=window, attn_softcap=cfg.attn_softcap)
     return torch.einsum("bshd,hdm->bsm", o, p["wo"])
+
+
+class KVCache(NamedTuple):
+    """Decode-time KV cache for one layer group. k/v: (B, Hkv, S, D)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @staticmethod
+    def shape(cfg: ModelConfig, batch: int, length: int,
+              dtype: torch.dtype = torch.bfloat16) -> TensorSpec:
+        dims = attn_dims(cfg)
+        return TensorSpec((batch, dims.n_kv, length, dims.head_dim), dtype)
+
+
+def decode_attention(p, x: torch.Tensor, cache: KVCache, pos: int,
+                     cfg: ModelConfig, *, window: Optional[int] = None,
+                     attn_softcap_val: Optional[float] = None):
+    """One-token attention against the cache: x (B, 1, D) at position
+    ``pos`` (a host int) → (out (B, 1, D), cache).
+
+    The new key and value are cast to the cache's dtype and written into
+    ``cache`` in place at ``pos`` (a window cache is a ring buffer: at
+    ``pos % S``, every slot valid once ``pos >= S``), and the same
+    `KVCache` is returned. As in the reference, f32 queries meet the
+    cache promoted to f32 (JAX's type promotion; `torch.einsum` does not
+    promote), and the softmax is cast to the cache's dtype before the
+    value product, so a bf16 cache gives a bf16-rounded attention
+    output. A full (not windowed) cache refuses ``pos >= S``, where the
+    reference's ``dynamic_update_slice`` clamps the write to slot S-1.
+    """
+    dims = attn_dims(cfg)
+    b = x.shape[0]
+    s_len = cache.k.shape[2]
+    if window is None and not 0 <= pos < s_len:
+        raise ValueError(f"decode_attention: pos {pos} outside the "
+                         f"cache's {s_len} slots")
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = qkv_project(p, x, positions, cfg)
+    write_at = pos % s_len if window is not None else pos
+    cache.k[:, :, write_at] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, :, write_at] = v_new[:, 0].to(cache.v.dtype)
+
+    scale = 1.0 / math.sqrt(dims.head_dim)
+    idx = torch.arange(s_len, device=x.device)
+    if window is not None and pos >= s_len:  # ring buffer: all valid
+        valid = torch.ones_like(idx, dtype=torch.bool)
+    else:
+        valid = idx <= write_at
+    k_c = cache.k.float()  # where JAX promotes the cache operand
+    if dims.n_q % dims.n_kv == 0:
+        # grouped GQA decode: q-head groups against their kv head
+        g, r = dims.n_kv, dims.n_q // dims.n_kv
+        qg = q[:, 0].reshape(b, g, r, dims.head_dim)
+        scores = torch.einsum("bgrd,bgkd->bgrk", qg, k_c) * scale
+        scores = softcap(scores, attn_softcap_val)
+        scores = torch.where(valid, scores, -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        out_h = torch.einsum("bgrk,bgkd->bgrd", probs.to(cache.v.dtype),
+                             cache.v).reshape(b, dims.n_q, dims.head_dim)
+    else:
+        kmap = torch.tensor(kv_expand_map(dims), device=x.device)
+        k_full = k_c.index_select(1, kmap)  # (B, Hq, S, D)
+        v_full = cache.v.index_select(1, kmap)
+        scores = torch.einsum("bqhd,bhkd->bhk", q, k_full) * scale
+        scores = softcap(scores, attn_softcap_val)
+        scores = torch.where(valid, scores, -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        out_h = torch.einsum("bhk,bhkd->bhd", probs.to(v_full.dtype),
+                             v_full)
+    out = torch.einsum("bhd,hdm->bm", out_h.to(p["wo"].dtype), p["wo"])
+    return out[:, None, :], cache

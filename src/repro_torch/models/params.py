@@ -66,10 +66,24 @@ def unflatten_names(flat: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def map_tree(fn, tree):
-    """Apply ``fn`` to every leaf of a nested dict of leaves."""
+    """Apply ``fn`` to every leaf of a nested dict / `NamedTuple` tree."""
     if isinstance(tree, Mapping):
         return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_tree(fn, v) for v in tree))
     return fn(tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """A tensor's shape and dtype without its data: the port's
+    counterpart of ``jax.ShapeDtypeStruct`` in the cache specs."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+    def zeros(self, device=None) -> torch.Tensor:
+        return torch.zeros(self.shape, dtype=self.dtype, device=device)
 
 
 def init_params(defs, generator: torch.Generator, device=None):

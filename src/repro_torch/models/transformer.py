@@ -1,20 +1,19 @@
-"""Decoder-only LM for the dense and MoE families: one period-structured
-stack.
+"""Generic decoder-only LM covering the dense / MoE / hybrid / VLM / SSM
+families through one period-structured stack.
 
-The port's copy of the train path of `repro.models.transformer`. Layers
-are grouped into *periods*, the smallest repeating pattern of the
-architecture (gemma2: [local, global]; llama4: [dense FFN, MoE FFN];
-homogeneous archs: period 1). Each period position owns its stacked
-parameters with a leading ``n_periods`` axis, so the parameter names
-equal the reference's (``blocks/L0/attn/wq``). The reference's
-``lax.scan`` over periods is a Python loop here, and its
+The port's copy of `repro.models.transformer`. Layers are grouped into
+*periods*, the smallest repeating pattern of the architecture (gemma2:
+[local, global]; jamba: [attn, 7×mamba] with MoE on odd positions;
+llama4: [dense FFN, MoE FFN]; homogeneous archs: period 1). Each period
+position owns its stacked parameters with a leading ``n_periods`` axis,
+so the parameter names equal the reference's (``blocks/L0/attn/wq``).
+The reference's ``lax.scan`` over periods is a Python loop here, and its
 ``jax.checkpoint`` is `torch.utils.checkpoint.checkpoint` per period
-(``use_reentrant=False``): it saves memory and changes no number.
-
-Not ported yet (ROADMAP Queue 1 item 2), each refused by name with
-`NotImplementedError`: the SSM mixer (``mamba2``, ``jamba``), the
-encoder–decoder family (``whisper``), the vision-stub frontend
-(``internvl2``) and the decode path.
+(``use_reentrant=False``): it saves memory and changes no number. The
+vision stub (internvl2) prepends ``extra_embeds`` to the token
+embeddings. The decode path (`cache_spec`, `init_cache`, `decode_step`)
+writes each step into the stacked caches in place. The cache's logical
+axes wait for the model-sharding rules (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -24,32 +23,20 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import attention_block, attn_param_defs
+from repro_torch.models.attention import (KVCache, attention_block,
+                                          attn_param_defs, decode_attention)
 from repro_torch.models.layers import (cross_entropy_loss, embed, rms_norm,
                                        softcap, swiglu, unembed)
+from repro_torch.models.mamba2 import (ssd_decode_step, ssd_mixer,
+                                       ssm_param_defs, ssm_state_structs)
 from repro_torch.models.moe import moe_ffn, moe_param_defs
-from repro_torch.models.params import PDef
+from repro_torch.models.params import PDef, TensorSpec, map_tree
 
 
 def padded_vocab(vocab: int) -> int:
     """The vocabulary padded to a multiple of 128, as the reference's
     `padded_vocab` pads it on one device; padded logits are -1e30."""
     return ((vocab + 127) // 128) * 128
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Refuse by name an architecture part this port does not cover."""
-    missing = []
-    if cfg.is_encoder_decoder:
-        missing.append("the encoder-decoder family (whisper)")
-    if cfg.family == "ssm" or cfg.attn_period:
-        missing.append("the SSM mixer (mamba2 / jamba)")
-    if cfg.frontend == "vision_stub":
-        missing.append("the vision-stub frontend (internvl2)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} is not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 2)")
 
 
 def period_structure(cfg: ModelConfig
@@ -99,17 +86,20 @@ def ffn_param_defs(cfg: ModelConfig, n_stack: int):
 
 def param_defs(cfg: ModelConfig) -> Dict:
     """Abstract parameter tree for the full model."""
-    check_ported(cfg)
     _, layers = period_structure(cfg)
     np_ = n_periods(cfg)
     d = cfg.d_model
     blocks: Dict[str, Dict] = {}
-    for i, (_mixer, _flavor, ffn) in enumerate(layers):
-        grp: Dict = {"ln1": PDef((np_, d), ("layers", "embed"), init="zeros"),
-                     "attn": attn_param_defs(cfg, np_)}
-        if cfg.local_global_period:  # gemma2 post-norms
-            grp["post_ln1"] = PDef((np_, d), ("layers", "embed"),
-                                   init="zeros")
+    for i, (mixer, _flavor, ffn) in enumerate(layers):
+        grp: Dict = {"ln1": PDef((np_, d), ("layers", "embed"),
+                                 init="zeros")}
+        if mixer == "attn":
+            grp["attn"] = attn_param_defs(cfg, np_)
+            if cfg.local_global_period:  # gemma2 post-norms
+                grp["post_ln1"] = PDef((np_, d), ("layers", "embed"),
+                                       init="zeros")
+        else:
+            grp["ssm"] = ssm_param_defs(cfg, np_)
         if ffn is not None:
             grp["ln2"] = PDef((np_, d), ("layers", "embed"), init="zeros")
             if ffn == "moe":
@@ -137,41 +127,54 @@ def _mlp_act(cfg: ModelConfig) -> str:
 
 def _period(cfg: ModelConfig, layers, positions, x, aux, period_params):
     """One period of the stack (train path) → (x, aux)."""
-    for i, (_mixer, flavor, ffn) in enumerate(layers):
+    for i, (mixer, flavor, ffn) in enumerate(layers):
         pp = period_params[f"L{i}"]
         h = rms_norm(x, pp["ln1"], cfg.norm_eps, cfg.norm_f32)
-        window = cfg.sliding_window if flavor == "local" else None
-        h = attention_block(pp["attn"], h, positions, cfg, causal=True,
-                            window=window)
-        if "post_ln1" in pp:
-            h = rms_norm(h, pp["post_ln1"], cfg.norm_eps, cfg.norm_f32)
+        if mixer == "attn":
+            window = cfg.sliding_window if flavor == "local" else None
+            h = attention_block(pp["attn"], h, positions, cfg, causal=True,
+                                window=window)
+            if "post_ln1" in pp:
+                h = rms_norm(h, pp["post_ln1"], cfg.norm_eps, cfg.norm_f32)
+        else:
+            h = ssd_mixer(pp["ssm"], h, cfg)
         x = x + h
         if ffn is not None:
-            h2 = rms_norm(x, pp["ln2"], cfg.norm_eps, cfg.norm_f32)
-            if ffn == "moe":
-                h2, a = moe_ffn(pp["moe"], h2, cfg)
-                aux = aux + a
-            else:
-                h2 = swiglu(h2, pp["ffn"]["w_gate"], pp["ffn"]["w_up"],
-                            pp["ffn"]["w_down"], act=_mlp_act(cfg))
-            if "post_ln2" in pp:
-                h2 = rms_norm(h2, pp["post_ln2"], cfg.norm_eps, cfg.norm_f32)
+            h2, a = _ffn(cfg, pp, x, ffn)
+            aux = aux + a
             x = x + h2
     return x, aux
 
 
+def _ffn(cfg: ModelConfig, pp, x: torch.Tensor, ffn: str):
+    """A period position's FFN sublayer (its norms included) → (output,
+    aux loss)."""
+    h2 = rms_norm(x, pp["ln2"], cfg.norm_eps, cfg.norm_f32)
+    aux = 0.0
+    if ffn == "moe":
+        h2, aux = moe_ffn(pp["moe"], h2, cfg)
+    else:
+        h2 = swiglu(h2, pp["ffn"]["w_gate"], pp["ffn"]["w_up"],
+                    pp["ffn"]["w_down"], act=_mlp_act(cfg))
+    if "post_ln2" in pp:
+        h2 = rms_norm(h2, pp["post_ln2"], cfg.norm_eps, cfg.norm_f32)
+    return h2, aux
+
+
 def _index_tree(tree, i: int):
-    if isinstance(tree, dict):
-        return {k: _index_tree(v, i) for k, v in tree.items()}
-    return tree[i]
+    """Period ``i`` of a stacked tree (views, no copy)."""
+    return map_tree(lambda a: a[i], tree)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
+            extra_embeds: Optional[torch.Tensor] = None,
             remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) → (logits (B, S, V_pad), aux_loss)."""
-    check_ported(cfg)
+    """tokens (B, S) [+ extra_embeds (B, S_front, D), the modality stub
+    prepended] → (logits (B, S_front + S, V_pad), aux_loss)."""
     x = embed(tokens, params["embed"],
               scale_by_dim=bool(cfg.local_global_period))
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     s_total = x.shape[1]
     positions = torch.arange(s_total, device=x.device)[None, :].expand(
         x.shape[0], s_total)
@@ -191,8 +194,15 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
 
 def lm_loss(params, batch, cfg: ModelConfig, aux_weight: float = 0.01,
             remat: bool = True) -> torch.Tensor:
-    """Next-token CE (+ MoE aux). batch: {tokens, labels}."""
-    logits, aux = forward(params, batch["tokens"], cfg, remat=remat)
+    """Next-token CE (+ MoE aux). batch: {tokens, labels[,
+    extra_embeds]}; the logits of the prepended embeddings are
+    dropped."""
+    logits, aux = forward(params, batch["tokens"], cfg,
+                          extra_embeds=batch.get("extra_embeds"),
+                          remat=remat)
+    n_front = logits.shape[1] - batch["labels"].shape[1]
+    if n_front:
+        logits = logits[:, n_front:]
     loss = cross_entropy_loss(logits, batch["labels"])
     return loss + aux_weight * aux
 
@@ -206,3 +216,73 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
         logits = torch.where(pad, -1e30, logits)
     return logits
+
+
+# --------------------------------------------------------------------------
+# Decode path
+# --------------------------------------------------------------------------
+
+def cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
+               dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """The decode cache's `TensorSpec`s by period position, each stacked
+    ``(n_periods, ...)``: a `KVCache` of ``dtype`` for an attention
+    layer (a local layer's at ``min(sliding_window, seq_len)``), an f32
+    `SsmState` for an SSM layer."""
+    _, layers = period_structure(cfg)
+    np_ = n_periods(cfg)
+
+    def stack(spec: TensorSpec) -> TensorSpec:
+        return TensorSpec((np_,) + tuple(spec.shape), spec.dtype)
+
+    structs = {}
+    for i, (mixer, flavor, _ffn) in enumerate(layers):
+        if mixer == "attn":
+            length = seq_len
+            if flavor == "local" and cfg.sliding_window:
+                length = min(cfg.sliding_window, seq_len)
+            sd = stack(KVCache.shape(cfg, batch, length, dtype))
+            structs[f"L{i}"] = KVCache(k=sd, v=sd)
+        else:
+            structs[f"L{i}"] = map_tree(stack, ssm_state_structs(cfg, batch))
+    return structs
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None,
+               dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """Zeros of `cache_spec` on ``device``."""
+    return map_tree(lambda spec: spec.zeros(device),
+                    cache_spec(cfg, batch, seq_len, dtype))
+
+
+def decode_step(params, tokens: torch.Tensor, cache: Dict, pos: int,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """One serve step: tokens (B, 1) at position ``pos`` (a host int) →
+    (logits (B, 1, V_pad), cache). One Python loop over the periods;
+    every period's cache is updated in place (a KV write at ``pos``, the
+    SSM state and conv tail copied over) and the same dict returned."""
+    x = embed(tokens, params["embed"],
+              scale_by_dim=bool(cfg.local_global_period))
+    _, layers = period_structure(cfg)
+    for p_i in range(n_periods(cfg)):
+        pp_all = _index_tree(params["blocks"], p_i)
+        for i, (mixer, flavor, ffn) in enumerate(layers):
+            pp = pp_all[f"L{i}"]
+            c_i = map_tree(lambda a: a[p_i], cache[f"L{i}"])
+            h = rms_norm(x, pp["ln1"], cfg.norm_eps, cfg.norm_f32)
+            if mixer == "attn":
+                window = cfg.sliding_window if flavor == "local" else None
+                h, _ = decode_attention(pp["attn"], h, c_i, pos, cfg,
+                                        window=window,
+                                        attn_softcap_val=cfg.attn_softcap)
+                if "post_ln1" in pp:
+                    h = rms_norm(h, pp["post_ln1"], cfg.norm_eps,
+                                 cfg.norm_f32)
+            else:
+                h, new = ssd_decode_step(pp["ssm"], h, c_i, cfg)
+                c_i.s.copy_(new.s)
+                c_i.conv.copy_(new.conv)
+            x = x + h
+            if ffn is not None:
+                x = x + _ffn(cfg, pp, x, ffn)[0]
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_f32)
+    return _logits(params, x, cfg), cache

@@ -1,1 +1,2 @@
-"""Train step, checkpoints, fault tolerance and FINGER telemetry."""
+"""Train and serve steps, checkpoints, fault tolerance and FINGER
+telemetry."""

@@ -1,6 +1,6 @@
-"""The train step builder.
+"""The train and serve step builders.
 
-The port's copy of `repro.train.step.build_train_step` for one device.
+The port's copy of `repro.train.step` for one device.
 A step takes the loss and its gradients with `torch.autograd.grad` on
 detached views of the parameters (no copy), then applies the AdamW
 update in place (`optim/adamw.py`). With ``n_microbatches`` > 1 the
@@ -12,8 +12,9 @@ With ``compress_grads=True`` the step is ``(params, opt_state,
 residuals, batch) → (params, opt_state, residuals, metrics)``: the
 gradients pass through `distributed.compression.compress_with_feedback`
 (int8 with error feedback, the residuals carried from step to step)
-before the update, as in the reference. Serving steps wait for the
-decode path (ROADMAP Queue 1 item 2).
+before the update, as in the reference. `build_serve_step` is one
+greedy decode step under ``torch.no_grad``, its argmax left on the
+device.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.compression import compress_with_feedback
-from repro_torch.models.api import build_loss_fn
+from repro_torch.models.api import build_decode_fn, build_loss_fn
 from repro_torch.models.params import flatten_names, unflatten_names
 from repro_torch.optim.adamw import AdamWConfig, apply_update
 
@@ -92,3 +93,22 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         return params, opt_state, metrics
 
     return train_step
+
+
+def build_serve_step(cfg: ModelConfig, greedy: bool = True):
+    """(params, tokens (B, 1), cache, pos: int) → (next_tok int32
+    (B, 1), logits (B, 1, V_pad), cache). The next token is the argmax
+    on the device (``greedy``; otherwise the input tokens, as in the
+    reference); nothing is copied to the host."""
+    decode = build_decode_fn(cfg)
+
+    @torch.no_grad()
+    def serve_step(params, tokens, cache, pos):
+        logits, cache = decode(params, tokens, cache, pos)
+        if greedy:
+            next_tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+        else:
+            next_tok = tokens
+        return next_tok.to(torch.int32), logits, cache
+
+    return serve_step

@@ -19,6 +19,12 @@ checkpoint directory left out (`normalize`).
   6``. The twin's ``sharded`` and ``multipod`` runs are held bit for bit
   to its own local run (the reference's sharded placements are red
   here, ROADMAP Queue 3).
+- `serve_batched` at its defaults, given the reference's parameters
+  and prompts (threefry draws): the ``reqN:`` lines equal, token for
+  token; and the serve launcher `repro_torch.launch.serve` prints the
+  reference launcher's line. Neither launcher runs FINGER telemetry:
+  the reference's docstring says that `launch/serve.py` does, but its
+  `serve_batch` only decodes, and the port does the same.
 - `train_with_entropy_probe` has a file of its own,
   `test_torch_train_example_twin.py` (the reference's compile alone
   takes about 18 s here).
@@ -42,9 +48,10 @@ if str(ROOT) not in sys.path:  # `examples` and `examples_torch`
 
 from examples import anomaly_detection as ref_anomaly  # noqa: E402
 from examples import quickstart as ref_quickstart  # noqa: E402
+from examples import serve_batched as ref_batched  # noqa: E402
 from examples import serve_streams as ref_serve  # noqa: E402
 from examples_torch import anomaly_detection, quickstart, \
-    serve_streams  # noqa: E402
+    serve_batched, serve_streams  # noqa: E402
 
 TOL = 2e-4
 NUMBER = re.compile(r"-?\d+\.\d+|-?\d+")
@@ -165,3 +172,55 @@ def test_serve_streams_fleet_matches_the_reference(capsys, monkeypatch):
     gaps = [float(g) for g in GAP.findall(twin)]
     assert len(gaps) == len(GAP.findall(ref)) > 0
     assert max(gaps) < 1e-5
+
+
+def test_serve_batched_matches_the_reference(capsys, monkeypatch):
+    from repro.configs.base import get_config
+    from repro.distributed.sharding import NO_SHARDING
+    from repro.models.api import model_param_defs
+    from repro.models.params import init_params
+    from repro_torch.interop import params_from_numpy
+
+    ref = reference_out(capsys, monkeypatch, ref_batched)
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    params = init_params(model_param_defs(cfg, NO_SHARDING),
+                         jax.random.PRNGKey(0))
+    prompts = jax.random.randint(jax.random.PRNGKey(1), (4, 8), 0,
+                                 cfg.vocab_size)
+    import torch
+
+    seqs = serve_batched.main(
+        ["--device", "cpu"],
+        params=params_from_numpy(jax.tree_util.tree_map(np.asarray, params),
+                                 "cpu"),
+        prompts=torch.from_numpy(np.array(prompts)))
+    twin = capsys.readouterr().out
+    want = [s for s in ref.splitlines() if s.strip().startswith("req")]
+    got = [s for s in twin.splitlines() if s.strip().startswith("req")]
+    assert len(want) == 4 and got == want
+    head = re.compile(r"decoded 4 requests x 32 tokens in \d+\.\d+s "
+                      r"\(\d+ tok/s incl\. compile\)")
+    assert head.fullmatch(ref.splitlines()[0])
+    assert head.fullmatch(twin.splitlines()[0])
+    assert len(twin.splitlines()) == len(ref.splitlines()) == 5
+    assert tuple(seqs.shape) == (4, 32)
+
+
+def test_serve_launcher_prints_the_reference_line(capsys, monkeypatch):
+    from repro.launch import serve as ref_launch
+    from repro_torch.launch import serve
+
+    flags = ["--reduced", "--batch", "2", "--prompt-len", "4",
+             "--max-new", "4"]
+    monkeypatch.setattr(sys, "argv", ["serve", *flags])
+    capsys.readouterr()
+    ref_launch.main()
+    ref = capsys.readouterr().out.strip().splitlines()
+    seqs = serve.main([*flags, "--device", "cpu"])
+    got = capsys.readouterr().out.strip().splitlines()
+    line = re.compile(r"decoded \(2, 8\) in \d+\.\d+s \(\d+\.\d tok/s\); "
+                      r"sample: \[(\d+, ){7}\d+\]")
+    # one line each: no telemetry in either launcher
+    assert len(ref) == len(got) == 1
+    assert line.fullmatch(ref[0]) and line.fullmatch(got[0])
+    assert got[0].endswith(f"sample: {seqs[0].tolist()}")

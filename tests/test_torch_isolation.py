@@ -68,7 +68,9 @@ def test_import_every_submodule_loads_no_jax_and_no_repro():
               "repro_torch.optim.adamw", "repro_torch.train.step",
               "repro_torch.train.telemetry", "repro_torch.train.checkpoint",
               "repro_torch.train.fault_tolerance",
-              "repro_torch.launch.train", "repro_torch.kernels.parity",
+              "repro_torch.launch.train", "repro_torch.launch.serve",
+              "repro_torch.models.mamba2", "repro_torch.models.whisper",
+              "repro_torch.kernels.parity",
               "repro_torch.kernels.vnge_q.ops",
               "repro_torch.kernels.entropy_probe.ops",
               "repro_torch.kernels.bsr_spmv.ops",
@@ -128,7 +130,8 @@ def test_twins_import_no_jax_and_no_repro():
     assert {"common.py", "fig1_degree.py", "fig2_size.py",
             "fig4_bifurcation.py", "table2_wiki.py", "table3_dos.py",
             "run.py", "quickstart.py", "anomaly_detection.py",
-            "train_with_entropy_probe.py", "serve_streams.py"} <= names
+            "train_with_entropy_probe.py", "serve_streams.py",
+            "serve_batched.py"} <= names
     for path in files:
         mods = _imported(path)
         assert _foreign(mods) == [], path
@@ -154,8 +157,9 @@ def test_twins_fail_by_name_without_a_card(monkeypatch, tmp_path):
                                       fig4_bifurcation, run, table2_wiki,
                                       table3_dos)
         from examples_torch import (anomaly_detection, quickstart,
-                                    serve_streams,
+                                    serve_batched, serve_streams,
                                     train_with_entropy_probe)
+        from repro_torch.launch import serve
     finally:
         sys.path.remove(str(ROOT))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -165,7 +169,9 @@ def test_twins_fail_by_name_without_a_card(monkeypatch, tmp_path):
              lambda: train_with_entropy_probe.main(
                  ["--steps", "1", "--ckpt-dir", str(tmp_path)]),
              lambda: serve_streams.main([]),
-             lambda: serve_streams.main(["--fleet"])]
+             lambda: serve_streams.main(["--fleet"]),
+             lambda: serve_batched.main([]),
+             lambda: serve.main(["--reduced"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="is_available"):
             call()

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_models import pair as jax_model
 from repro.configs import base as jax_base
 from repro.configs.archs import ARCH_IDS
 from repro.distributed.sharding import NO_SHARDING
@@ -46,32 +47,6 @@ from repro_torch.optim import adamw as pt_adamw
 from repro_torch.train.step import build_train_step as pt_build_train_step
 
 CPU = "cpu"
-
-
-def _fan_in(name, shape):
-    """The contracted width of a stacked (L, ...) layer weight."""
-    if name.endswith("/wo"):
-        return shape[1] * shape[2]
-    if "/moe/w_" in name:
-        return shape[2]
-    return shape[1]
-
-
-def jax_model(name, **changes):
-    """A reduced reference config, its params (numpy tree, layer weights
-    redrawn at 1/sqrt(fan-in)) and the port's config of the same name
-    and changes."""
-    cfg = dataclasses.replace(jax_base.get_config(name).reduced(), **changes)
-    params = jax_init_params(jax_tf.param_defs(cfg, NO_SHARDING),
-                             jax.random.PRNGKey(0))
-    flat = flatten_names(jax.tree_util.tree_map(np.asarray, params))
-    rng = np.random.default_rng(0)
-    for key, a in flat.items():
-        if key.startswith("blocks/") and a.ndim > 2 and a.any():
-            flat[key] = (rng.normal(size=a.shape)
-                         / np.sqrt(_fan_in(key, a.shape))).astype(np.float32)
-    pcfg = dataclasses.replace(pt_base.get_config(name).reduced(), **changes)
-    return cfg, unflatten_names(flat), pcfg
 
 
 def t(x):
@@ -316,18 +291,6 @@ def test_init_keeps_the_reference_fan_in_quirk():
         else:
             assert abs(g.std() / a.std() - 1) < 0.1, k
     assert abs(got["blocks/L0/attn/wq"].std().item() - 2 ** -0.5) < 0.02
-
-
-@pytest.mark.parametrize("name", ["mamba2-130m", "whisper-small",
-                                  "internvl2-1b", "jamba-1.5-large-398b"])
-def test_unported_architectures_refuse_by_name(name):
-    from repro_torch.models.api import build_loss_fn, model_param_defs
-
-    cfg = pt_base.get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        model_param_defs(cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_loss_fn(cfg)
 
 
 def test_launcher_cpu_smoke_runs_both_probes():
