@@ -5,9 +5,10 @@ device of ``--device`` (the card by default). Usage:
     PYTHONPATH=src python -m benchmarks_torch.run [--only fig1,table3]
         [--device cuda|cpu]
 
-The twin of `benchmarks/run.py` for its five paper suites; a failed
-suite fails the harness (exit status 1). The reference's other suites
-live elsewhere in the port or have no twin (ROADMAP.md, Queue 1).
+The twin of `benchmarks/run.py` for its five paper suites and its
+``analysis`` gate; a failed suite fails the harness (exit status 1).
+The reference's other suites live elsewhere in the port or have no twin
+(ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -16,8 +17,8 @@ import sys
 import time
 import traceback
 
-from benchmarks_torch import (fig1_degree, fig2_size, fig4_bifurcation,
-                              table2_wiki, table3_dos)
+from benchmarks_torch import (analysis_gate, fig1_degree, fig2_size,
+                              fig4_bifurcation, table2_wiki, table3_dos)
 from benchmarks_torch.common import device_arg
 from repro_torch.kernels.dispatch import resolve_device
 
@@ -27,6 +28,7 @@ SUITES = {
     "table2": lambda device: table2_wiki.run(device=device),
     "table3": lambda device: table3_dos.run(device=device),
     "fig4": lambda device: fig4_bifurcation.run(device=device),
+    "analysis": lambda device: analysis_gate.run(device=device),
 }
 
 

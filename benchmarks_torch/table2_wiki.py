@@ -73,7 +73,8 @@ def run(device="cuda", start=None) -> list:
 
     for name, fn in methods(start_vector(start, N, dev)).items():
         t0 = time.perf_counter()
-        scores = [float(fn(a, b)) for a, b in pairs]
+        # one score a graph pair, as the reference script takes them
+        scores = [float(fn(a, b)) for a, b in pairs]  # lint: disable=per-item-host-sync
         row(f"table2/{name}", (time.perf_counter() - t0) / len(pairs),
             scores)
 

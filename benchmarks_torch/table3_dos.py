@@ -51,7 +51,8 @@ def detect_rate(method, name: str, x: int, n: int, instances: int, dev
         seq, attack_at = dos_attack_sequence(n=n, attack_frac=x / 100.0,
                                              seed=seed)
         graphs = [g.to(dev) for g in seq.graphs]
-        scores = [float(method(graphs[t], graphs[t + 1]))
+        # one score a graph pair, as the reference script takes them
+        scores = [float(method(graphs[t], graphs[t + 1]))  # lint: disable=per-item-host-sync
                   for t in range(len(graphs) - 1)]
         hits += int(attack_at in np.argsort(scores)[-2:])
     return report(f"table3/X{x}%/{name}", t0, hits, instances)

@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed S] [--batch B]
 
 Run from the root of a checkout; it imports `repro_torch` from
-``src/`` and never JAX or the JAX package. Eleven phases, each printing
+``src/`` and never JAX or the JAX package. Twelve phases, each printing
 a line of its own; any failure exits non-zero:
 
 1. build   — the hand-written kernels from ``src/repro_torch/csrc/``,
@@ -287,11 +287,31 @@ a line of its own; any failure exits non-zero:
              serving or by mamba2 and whisper training. Prints each
              family's parameters, losses, step ms, peak memory and
              launches.
+12. analysis — the port's analysis gate in this process, after
+             `torch.cuda.empty_cache()` (so that the allocator check bears
+             load): `repro_torch.analysis.__main__.main(["--json"])`, that
+             is the lint over the port, the tick audit (one tick of every
+             placement — local, sharded over 4 logical shards, multipod
+             over 2 × 2 — for ``fused_tick`` and ``sparse_tick`` at the
+             reference's small shapes and at phases 3 and 5's, and the
+             migration transforms), ``smem`` (every kernel instantiation's
+             launch: registers, spills, shared memory, blocks an SM, the
+             guards against the kernels' own checks, each package's parity
+             case) and the sentinel chains (dense, sparse, fleet, and the
+             dense chain at phase 3's shape, n_pad 1024 → 2048 → 1024).
+             Checks: the report's ``ok`` and exit code 0 — no unsuppressed
+             lint finding, every target audited clean with one launch a
+             shard, no smem violation, every chain at 0 first-use events.
+             Prints one line a check with its seconds, the audit's
+             targets, the smem table and the chains' phases; the whole
+             report goes to ``build/analysis_report.json``.
 
 Each phase prints its seconds. Every wrapper's launch count is set to 0
 just before phases 3 (and again before its lifecycle part), 4, 5, 6,
-7, 8, each part of 9, each kernel-reaching example of 10 and each
-serve and train path of 11, and read just after each path; a kernel's
+7, 8, each part of 9, each kernel-reaching example of 10, each
+serve and train path of 11 and phase 12, and read just after each path
+(phase 12's parity cases are comparisons: `smem` puts the counts back
+after them); a kernel's
 ``launches`` in the kernels line is the sum over those paths. Kernel
 times are CUDA-event means of the launch each path makes, at its shapes and inputs: ``stream_tick`` in
 place on a copy of a main-path tick's state restored before every call,
@@ -446,31 +466,21 @@ def cuda_ms(fn, reps: int, setup=None) -> float:
     return total / reps
 
 
-def kernel_ops():
-    """The ``ops`` module of every kernel package phase 2 checks."""
-    import importlib
-
-    return [importlib.import_module(f"repro_torch.kernels.{name}.ops")
-            for name in CHECKED]
-
-
 def zero_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    for mod in kernel_ops():
-        if isinstance(mod.LAUNCHES, dict):
-            mod.LAUNCHES.update(dict.fromkeys(mod.LAUNCHES, 0))
-        else:
-            mod.LAUNCHES = 0
+    from repro_torch.analysis.sanitize import (launch_counts,
+                                               set_launch_counts)
+
+    set_launch_counts(dict.fromkeys(launch_counts(), 0))
 
 
 def read_counts(out) -> dict:
     """Every wrapper's launch count since `zero_counts`, by kernel row
     name; also added to ``out["launches"]``, the kernels line's counts
     summed over the paths."""
-    got = {}
-    for mod in kernel_ops():
-        got.update(mod.LAUNCHES if isinstance(mod.LAUNCHES, dict)
-                   else {mod.__name__.split(".")[-2]: mod.LAUNCHES})
+    from repro_torch.analysis.sanitize import launch_counts
+
+    got = launch_counts()
     total = out.setdefault("launches", {})
     for name, n in got.items():
         total[name] = total.get(name, 0) + n
@@ -1004,7 +1014,8 @@ def sampled_worst(fleet, sampled, before, scores, dev) -> float:
     for r, b in enumerate(sampled):
         g0 = fleet.graph_at(b, before[0][r], before[1][r], dev)
         g1 = fleet.graph_at(b, fleet.w[b], fleet.active[b], dev)
-        worst = max(worst, abs(float(jsdist_tilde(g0, g1))
+        # one sampled stream's check, outside the timed ticks
+        worst = max(worst, abs(float(jsdist_tilde(g0, g1))  # lint: disable=per-item-host-sync
                                - float(scores[b])))
     return worst
 
@@ -1430,8 +1441,9 @@ def phase_single(args, torch, out, dev):
                                (want.double() ** 2).cpu().numpy(),
                                atol=1e-5, rtol=1e-5)
     for f in ("q", "s_total", "s_max", "strengths"):
-        np.testing.assert_allclose(getattr(got_state, f).cpu().numpy(),
-                                   getattr(want_state, f).cpu().numpy(),
+        # one pull a state field: the fields are separate tensors
+        np.testing.assert_allclose(getattr(got_state, f).cpu().numpy(),  # lint: disable=per-item-host-sync
+                                   getattr(want_state, f).cpu().numpy(),  # lint: disable=per-item-host-sync
                                    atol=1e-5, rtol=1e-5, err_msg=f)
     if launches != 40:
         raise AssertionError(f"delta_stats launched {launches} times for "
@@ -1487,7 +1499,8 @@ def phase_sparse(args, torch, out, dev):
         for r, b in enumerate(sampled):
             g0 = fleet.graph_at(b, before[0][r], before[1][r], dev)
             g1 = fleet.graph_at(b, fleet.w[b], fleet.active[b], dev)
-            worst = max(worst, abs(float(jsdist_tilde(g0, g1))
+            # one sampled stream's check, outside the timed ticks
+            worst = max(worst, abs(float(jsdist_tilde(g0, g1))  # lint: disable=per-item-host-sync
                                    - float(scores[b])))
         if not np.isfinite(scores).all() or worst > 5e-3:
             raise AssertionError(f"sparse path: sampled scores differ "
@@ -2221,9 +2234,10 @@ def phase_offline(args, torch, out, dev):
         lam = bs_ops.power_iteration_lmax_bsr(m, info=info)
         lam_f = float(lam)
         pi_s = time.perf_counter() - p0
-        q = float(quadratic_q(g))
-        h_hat = float(vnge_hat(g, lambda_max=lam))
-        h_tilde = float(vnge_tilde(g))
+        # one value a graph, printed and checked
+        q = float(quadratic_q(g))  # lint: disable=per-item-host-sync
+        h_hat = float(vnge_hat(g, lambda_max=lam))  # lint: disable=per-item-host-sync
+        h_tilde = float(vnge_tilde(g))  # lint: disable=per-item-host-sync
         res[name] = dict(lam=lam_f, q=q, h_hat=h_hat, h_tilde=h_tilde,
                          iters=info["iterations"], build_s=build_s,
                          pi_s=pi_s, edges=int(g.weights.numel()))
@@ -2239,7 +2253,8 @@ def phase_offline(args, torch, out, dev):
     for name, (m, g) in mats.items():
         r = res[name]
         lam_mf = power_iteration_lmax(g)
-        h_mf = float(vnge_hat(g, lambda_max=lam_mf))
+        # one value a graph, checked
+        h_mf = float(vnge_hat(g, lambda_max=lam_mf))  # lint: disable=per-item-host-sync
         lam_mf = float(lam_mf)
         if name == "G":  # phase 9 shards this edge list
             out["dist_G"] = (g, lam_mf)
@@ -2315,7 +2330,8 @@ def phase_offline_dense(args, torch, dev):
                           ("jsdist_exact", lambda: jsdist_exact(a, b)),
                           ("jsdist_fast", lambda: jsdist_fast(a, b))):
             t0 = time.perf_counter()
-            v = float(fn())
+            # one value a function, its pull timed with it
+            v = float(fn())  # lint: disable=per-item-host-sync
             row[label] = (v, time.perf_counter() - t0)
         got[where] = row
     card, cpu = got["card"], got["cpu"]
@@ -2356,7 +2372,8 @@ def phase_offline_dos(args, torch, dev):
             gs = [g.to(dv) for g in seq.graphs]
             t0 = time.perf_counter()
             scores[where] = np.array([
-                float(jsdist_fast(gs[t], gs[t + 1], power_iters=DOS_ITERS))
+                # one score a graph pair, as the reference's Table 3 takes them
+                float(jsdist_fast(gs[t], gs[t + 1], power_iters=DOS_ITERS))  # lint: disable=per-item-host-sync
                 for t in range(len(gs) - 1)])
             secs[where] += time.perf_counter() - t0
             hits[where] += int(attack_at in np.argsort(scores[where])[-2:])
@@ -2365,8 +2382,9 @@ def phase_offline_dos(args, torch, dev):
         a, b = scores["card"], scores["cpu"]
         small = np.minimum(a, b) ** 2 < 1e-3
         diff = np.where(small, np.abs(a * a - b * b), np.abs(a - b))
-        worst = max(worst, float(diff.max()))
-        worst_dist = max(worst_dist, float(np.abs(a - b).max()))
+        # host numpy arrays: no device value
+        worst = max(worst, float(diff.max()))  # lint: disable=per-item-host-sync
+        worst_dist = max(worst_dist, float(np.abs(a - b).max()))  # lint: disable=per-item-host-sync
         if not np.isfinite(scores["card"]).all():
             raise AssertionError(f"DoS instance {inst}: scores "
                                  f"{scores['card']}")
@@ -2585,7 +2603,8 @@ class FleetTenants:
             m = self.mirrors[key]
             g0 = m.graph_at(b, *before[name], dev)
             g1 = m.graph_at(b, m.w[b], m.active[b], dev)
-            worst = max(worst, abs(float(jsdist_tilde(g0, g1))
+            # one sampled tenant's check, outside the timed ticks
+            worst = max(worst, abs(float(jsdist_tilde(g0, g1))  # lint: disable=per-item-host-sync
                                    - float(scores[name])))
         return worst
 
@@ -3734,7 +3753,8 @@ def derived_fields(rows) -> dict:
             if not eq:
                 continue
             try:
-                fields[key] = float(value.rstrip("%"))
+                # a number parsed from printed text
+                fields[key] = float(value.rstrip("%"))  # lint: disable=per-item-host-sync
             except ValueError:
                 fields[key] = value
         out[name] = fields
@@ -4065,7 +4085,8 @@ def phase_models(args, torch, out, dev):
               f"{b * new / dt:.1f} new tokens/s")
         print(f"  {cfg.name} decode step at batch {b}, cache "
               f"{prompt + new} (CUDA events, 20 steps): median "
-              f"{float(np.median(ms)):.3f} ms, min {min(ms):.3f} ms")
+              # a host numpy median
+              f"{float(np.median(ms)):.3f} ms, min {min(ms):.3f} ms")  # lint: disable=per-item-host-sync
     print(f"  {cfg.name} first new tokens: "
           f"{seqs[0, SERVE_BIG[1]:SERVE_BIG[1] + 16].tolist()}")
     peak(cfg.name)
@@ -4101,7 +4122,8 @@ def phase_models(args, torch, out, dev):
               + " ".join(f"{h['grad_norm']:.4g}" for h in history))
         print(f"  {name} step ms (CUDA events): "
               + " ".join(f"{x:.1f}" for x in step_ms)
-              + f"; median {float(np.median(step_ms)):.1f}; launches "
+              # a host numpy median
+              + f"; median {float(np.median(step_ms)):.1f}; launches "  # lint: disable=per-item-host-sync
               f"{counts}")
         probed = [(h["step"], k, round(h[k], 6)) for h in history
                   for k in ("attn_entropy_mean", "routing_jsdist")
@@ -4116,9 +4138,77 @@ def phase_models(args, torch, out, dev):
         b, prompt, new = SERVE_DEFAULTS
         print(f"  {name} serve_batch at the launcher's defaults: "
               f"{dt:.3f} s, {b * (prompt + new) / dt:.1f} tokens/s; "
-              f"first new tokens {seqs[0, prompt:prompt + 8].tolist()}")
+              # eight tokens printed once a family, after the timed serve
+              f"first new tokens {seqs[0, prompt:prompt + 8].tolist()}")  # lint: disable=per-item-host-sync
         peak(name)
         del params
+
+
+def phase_analysis(args, torch, out, dev):
+    """Phase 12: `repro_torch.analysis`'s gate in this process."""
+    import contextlib
+    import io
+
+    from repro_torch.analysis.__main__ import main as analysis_main
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = analysis_main(["--json"])
+    got = read_counts(out)
+    report = json.loads(buf.getvalue())
+    path = Path(__file__).resolve().parent / "build" / "analysis_report.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(report, indent=1))
+    checks = report["checks"]
+    lint = checks["lint"]
+    bad = [v for v in lint["violations"] if not v["suppressed"]]
+    print(f"  lint: {'OK' if lint['ok'] else 'FAIL'} in "
+          f"{lint['seconds']:.2f} s, {len(bad)} unsuppressed, "
+          f"{len(lint['violations']) - len(bad)} suppressed finding(s)")
+    for v in bad:
+        print(f"    {v['path']}:{v['line']}: [{v['rule']}] {v['message']}")
+    audit = checks["audit"]
+    print(f"  audit: {'OK' if audit['ok'] else 'FAIL'} in "
+          f"{audit['seconds']:.2f} s, {len(audit['targets'])} targets")
+    for t in audit["targets"]:
+        print(f"    [{'OK ' if t['ok'] else 'FAIL'}] {t['target']}: "
+              f"{t['shards']} shard(s), launches {t['launches'] or '{}'}")
+        for v in t["violations"]:
+            print(f"      {v['rule']}: {v['message']}")
+    sm = checks["smem"]
+    print(f"  smem: {'OK' if sm['ok'] else 'FAIL'} in {sm['seconds']:.2f} s"
+          f" on {sm.get('device')}, {len(sm.get('configs', []))} launches;"
+          f" parity launches {sm.get('parity_launches')}")
+    print(f"    {'package':13} {'instantiation':28} {'shape':30} "
+          f"{'regs':>4} {'spill':>5} {'smem B':>7} {'blk/SM':>6}")
+    for c in sm.get("configs", []):
+        print(f"    {c['package']:13} {c['kernel']:28} {c['shape']:30} "
+              f"{c['registers']:>4} {c['local_bytes']:>5} {c['smem']:>7} "
+              f"{c['blocks_per_sm']:>6}")
+    for g in sm.get("guards", []):
+        print(f"    guard {g['guard']} at {g['shape']}: admits "
+              f"{g['guard_admits']}, the kernel accepts "
+              f"{g['kernel_accepts']}")
+    for v in sm.get("violations", []) + ([sm] if "error" in sm else []):
+        print(f"    {v.get('rule', 'error')}: "
+              f"{v.get('message', v.get('error'))}")
+    sen = checks["sentinel"]
+    print(f"  sentinel: {'OK' if sen['ok'] else 'FAIL'} in "
+          f"{sen['seconds']:.2f} s")
+    for name, res in sen["chains"].items():
+        print(f"    {name}: " + (f"first-use events by phase "
+                                 f"{res['phases']}" if res["ok"]
+                                 else res["error"]))
+    print(f"  launches in phase 12 (audit and sentinel): "
+          f"{ {k: v for k, v in got.items() if v} }")
+    if rc != 0 or not report["ok"]:
+        failed = [name for name, c in checks.items() if not c["ok"]]
+        raise AssertionError(f"analysis gate failed: {failed}")
+    if got.get("stream_tick", 0) == 0 or got.get("sparse_tick", 0) == 0:
+        raise AssertionError(f"phase 12 launched no tick kernel: {got}")
 
 
 def print_row(r: dict) -> None:
@@ -4229,6 +4319,9 @@ def main() -> int:
         start("models", "phase 11 the model stack (decode and the serve "
                         "launcher, mamba2, whisper, internvl2, jamba):")
         phase_models(args, torch, out, dev)
+        start("analysis", "phase 12 the analysis gate (lint, tick audit, "
+                          "smem, sentinel):")
+        phase_analysis(args, torch, out, dev)
         for r in rows:  # rows built before a later path count it too
             r["launches"] = out["launches"][r["name"]]
         start("done", "")

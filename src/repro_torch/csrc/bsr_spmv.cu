@@ -111,6 +111,18 @@ bsr_matvec_kernel(const float* __restrict__ values,
   }
 }
 
+// One block of kThreads a stripe of b rows, for b = 128 or 64; a null
+// instantiation for any other b.
+LaunchConfig bsr_config(long long n_rb, int b) {
+  if (b == 128)
+    return {reinterpret_cast<const void*>(bsr_matvec_kernel<128>),
+            "bsr_matvec_kernel<128>", n_rb, kThreads, 0};
+  if (b == 64)
+    return {reinterpret_cast<const void*>(bsr_matvec_kernel<64>),
+            "bsr_matvec_kernel<64>", n_rb, kThreads, 0};
+  return {nullptr, "", n_rb, kThreads, 0};
+}
+
 }  // namespace
 
 // y = W x on `stream` for b = 64 or 128, stripes launched in `order`;
@@ -120,16 +132,28 @@ REPRO_EXPORT int bsr_matvec_launch(const float* values, const int* col_ids,
                                    const int* counts, const int* order,
                                    const float* x, float* y, int n_rb,
                                    int max_bpr, int b, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_rb <= 0) return 0;
-  if (b == 128) {
-    bsr_matvec_kernel<128><<<n_rb, kThreads, 0, s>>>(values, col_ids, counts,
-                                                     order, x, y, max_bpr);
-  } else if (b == 64) {
-    bsr_matvec_kernel<64><<<n_rb, kThreads, 0, s>>>(values, col_ids, counts,
-                                                    order, x, y, max_bpr);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const LaunchConfig c = bsr_config(n_rb, b);
+  if (c.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&values, &col_ids, &counts, &order, &x, &y, &max_bpr};
+  const cudaError_t launched = cudaLaunchKernel(
+      c.fn, dim3(static_cast<unsigned>(c.grid)), dim3(c.block), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch `bsr_matvec_launch` makes for n_rb stripes of b rows (which
+// 0, a = n_rb, b = b), with CUDA's attributes of its instantiation
+// (`launch_attributes`: out[kAttrCount], the name into `name`). Returns
+// the cudaError_t of the queries, cudaErrorInvalidValue for a b it does
+// not take.
+REPRO_EXPORT int bsr_spmv_launch_attrs(int which, long long a, long long b,
+                                       long long c, long long* out,
+                                       char* name, int cap) {
+  (void)c;
+  const LaunchConfig cfg = bsr_config(a, static_cast<int>(b));
+  if (which != 0 || cfg.fn == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_attributes(cfg, true, out, name, cap);
 }

@@ -27,6 +27,100 @@ REPRO_EXPORT int repro_empty_launch(void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- launch configurations ------------------------------------------
+//
+// A launcher computes the instantiation it launches and its grid, block
+// and dynamic shared memory from the shapes, into a LaunchConfig, by one
+// helper a kernel family; it launches from that record, and its
+// library's `*_launch_attrs` export reports the same record with CUDA's
+// attributes of the instantiation (`launch_attributes`), so the launch
+// and the report cannot drift apart.
+struct LaunchConfig {
+  const void* fn;    // the kernel instantiation
+  const char* name;  // its name, as the source spells it
+  long long grid;    // blocks
+  int block;         // threads a block
+  long long smem;    // dynamic shared memory a block, in bytes
+};
+
+// The card's per-block shared-memory limit with the opt-in above 48 KB,
+// or -1 with the CUDA error left for cudaGetLastError.
+inline long long smem_optin_limit(int device) {
+  int limit = 0;
+  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return -1;
+  return limit;
+}
+
+// Opt the instantiation in to its dynamic shared memory above 48 KB;
+// cudaErrorInvalidValue when its static and dynamic shared memory
+// together exceed the card's per-block limit.
+inline cudaError_t prepare_launch(const LaunchConfig& c) {
+  if (c.smem <= 48 * 1024) return cudaSuccess;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const long long limit = smem_optin_limit(device);
+  if (limit < 0) return cudaGetLastError();
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, c.fn);
+  if (err != cudaSuccess) return err;
+  if (c.smem + static_cast<long long>(attr.sharedSizeBytes) > limit)
+    return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(c.fn,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(c.smem));
+}
+
+// The fields `launch_attributes` writes, in order.
+enum LaunchAttr {
+  kAttrGrid, kAttrBlock, kAttrDynSmem, kAttrStaticSmem, kAttrRegs,
+  kAttrLocalBytes, kAttrMaxThreads, kAttrBlocksPerSm, kAttrSmemLimit,
+  kAttrAccepted, kAttrCount
+};
+
+// `c` with CUDA's attributes of its instantiation into out[kAttrCount]:
+// the launch (grid, block, dynamic shared memory), cudaFuncGetAttributes
+// (static shared memory, registers a thread, local bytes a thread — the
+// spills —, the most threads a block), resident blocks an SM from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor at that block and
+// dynamic shared memory (0 when the launch does not fit), the card's
+// opt-in limit, and whether `accepted` and `prepare_launch` let the
+// launcher launch it. The name goes into `name` (at most `cap` bytes
+// with the terminator). Returns the cudaError_t of the queries.
+inline int launch_attributes(const LaunchConfig& c, bool accepted,
+                             long long* out, char* name, int cap) {
+  int i = 0;
+  for (; i + 1 < cap && c.name[i]; ++i) name[i] = c.name[i];
+  if (cap > 0) name[i] = '\0';
+  out[kAttrGrid] = c.grid;
+  out[kAttrBlock] = c.block;
+  out[kAttrDynSmem] = c.smem;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[kAttrSmemLimit] = smem_optin_limit(device);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, c.fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[kAttrStaticSmem] = static_cast<long long>(attr.sharedSizeBytes);
+  out[kAttrRegs] = attr.numRegs;
+  out[kAttrLocalBytes] = static_cast<long long>(attr.localSizeBytes);
+  out[kAttrMaxThreads] = attr.maxThreadsPerBlock;
+  const bool fits = accepted && prepare_launch(c) == cudaSuccess;
+  out[kAttrAccepted] = fits ? 1 : 0;
+  int blocks = 0;
+  if (fits) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, c.fn, c.block, static_cast<size_t>(c.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaGetLastError();  // a refused prepare leaves no error behind
+  out[kAttrBlocksPerSm] = blocks;
+  return 0;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;

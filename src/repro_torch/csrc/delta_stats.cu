@@ -207,17 +207,31 @@ delta_stats_kernel(const int* __restrict__ senders,
   }
 }
 
-using DeltaFn = decltype(&delta_stats_kernel<0>);
-
 // The instantiation for a layout: keys in registers (2, 4 or 8 a lane)
-// or the shared-memory sort.
-DeltaFn delta_fn(const DeltaLayout& lay) {
+// or the shared-memory sort; one warp a stream, lay.streams streams a
+// block, and the layout's dynamic shared memory.
+LaunchConfig delta_config(long long rows, int k) {
+  const DeltaLayout lay(k);
+  LaunchConfig c{nullptr, nullptr, (rows + lay.streams - 1) / lay.streams,
+                 32 * lay.streams, lay.bytes()};
   switch (lane_keys(lay.sort_n)) {
-    case 2: return delta_stats_kernel<2>;
-    case 4: return delta_stats_kernel<4>;
-    case 8: return delta_stats_kernel<8>;
-    default: return delta_stats_kernel<0>;
+    case 2:
+      c.fn = reinterpret_cast<const void*>(delta_stats_kernel<2>);
+      c.name = "delta_stats_kernel<2>";
+      break;
+    case 4:
+      c.fn = reinterpret_cast<const void*>(delta_stats_kernel<4>);
+      c.name = "delta_stats_kernel<4>";
+      break;
+    case 8:
+      c.fn = reinterpret_cast<const void*>(delta_stats_kernel<8>);
+      c.name = "delta_stats_kernel<8>";
+      break;
+    default:
+      c.fn = reinterpret_cast<const void*>(delta_stats_kernel<0>);
+      c.name = "delta_stats_kernel<0>";
   }
+  return c;
 }
 
 // The sorted-form route for k above kMaxFusedK: the 2k endpoint ids
@@ -272,6 +286,12 @@ delta_stats_sorted_kernel(const int* __restrict__ sorted_nodes,
   }
 }
 
+// The sorted-form route's launch: one block of kSortedThreads a row.
+LaunchConfig sorted_config(long long rows) {
+  return {reinterpret_cast<const void*>(delta_stats_sorted_kernel),
+          "delta_stats_sorted_kernel", rows, kSortedThreads, 0};
+}
+
 }  // namespace
 
 // The largest k `delta_stats_launch` takes; above it the wrapper takes
@@ -289,19 +309,15 @@ REPRO_EXPORT int delta_stats_launch(const int* senders, const int* receivers,
   if (rows <= 0) return 0;
   if (k < 1 || k > kMaxFusedK)
     return static_cast<int>(cudaErrorInvalidValue);
-  const DeltaLayout lay(k);
-  const DeltaFn fn = delta_fn(lay);
-  const long long smem = lay.bytes();
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long blocks = (rows + lay.streams - 1) / lay.streams;
-  fn<<<static_cast<unsigned>(blocks), 32 * lay.streams,
-       static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
-      senders, receivers, dw, w_old, mask, strengths, out, rows, n, k);
+  const LaunchConfig c = delta_config(rows, k);
+  const cudaError_t err = prepare_launch(c);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&senders, &receivers, &dw, &w_old, &mask, &strengths,
+                  &out, &rows, &n, &k};
+  const cudaError_t launched = cudaLaunchKernel(
+      c.fn, dim3(static_cast<unsigned>(c.grid)), dim3(c.block), args,
+      static_cast<size_t>(c.smem), static_cast<cudaStream_t>(stream));
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -313,9 +329,34 @@ REPRO_EXPORT int delta_stats_sorted_launch(
     const float* dw, const float* w_old, float* out, int rows, int two_k,
     int k, void* stream) {
   if (rows <= 0) return 0;
-  delta_stats_sorted_kernel<<<rows, kSortedThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      sorted_nodes, sorted_vals, sorted_strengths, endpoint_valid, dw,
-      w_old, out, two_k, k);
+  const LaunchConfig c = sorted_config(rows);
+  void* args[] = {&sorted_nodes, &sorted_vals, &sorted_strengths,
+                  &endpoint_valid, &dw, &w_old, &out, &two_k, &k};
+  const cudaError_t launched = cudaLaunchKernel(
+      c.fn, dim3(static_cast<unsigned>(c.grid)), dim3(c.block), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch `delta_stats_launch` (which 0: a = rows, b = k) or
+// `delta_stats_sorted_launch` (which 1: a = rows) makes, with CUDA's
+// attributes of its instantiation (`launch_attributes`: out[kAttrCount],
+// the name into `name`); the one-launch route accepts k in
+// [1, kMaxFusedK] only. Returns the cudaError_t of the queries, or
+// cudaErrorInvalidValue for another `which`.
+REPRO_EXPORT int delta_stats_launch_attrs(int which, long long a,
+                                          long long b, long long c,
+                                          long long* out, char* name,
+                                          int cap) {
+  (void)c;
+  if (which == 0) {
+    // a k above the route's range is reported at its own layout, refused
+    const int k = b < 1 ? 1 : static_cast<int>(b);
+    return launch_attributes(delta_config(a, k), b >= 1 && b <= kMaxFusedK,
+                             out, name, cap);
+  }
+  if (which == 1) return launch_attributes(sorted_config(a), true, out, name,
+                                           cap);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -139,26 +139,38 @@ int row_vec(int s) {
   return v;
 }
 
+// One warp a row, kRowWarps rows a block, the instantiation for the row
+// length (`row_vec`) and whether the rows load as float4 (`vec_ok`).
 template <bool kVec>
-void launch_rows(int v, unsigned blocks, cudaStream_t st,
-                 const float* logits, float* out, long long rows, int s) {
-  switch (v) {
+LaunchConfig row_config_vec(long long rows, int s) {
+  LaunchConfig c{nullptr, nullptr, (rows + kRowWarps - 1) / kRowWarps,
+                 kThreads, 0};
+  switch (row_vec(s)) {
     case 1:
-      row_stats_kernel<1, kVec><<<blocks, kThreads, 0, st>>>(logits, out,
-                                                             rows, s);
+      c.fn = reinterpret_cast<const void*>(row_stats_kernel<1, kVec>);
+      c.name = kVec ? "row_stats_kernel<1, true>"
+                    : "row_stats_kernel<1, false>";
       break;
     case 2:
-      row_stats_kernel<2, kVec><<<blocks, kThreads, 0, st>>>(logits, out,
-                                                             rows, s);
+      c.fn = reinterpret_cast<const void*>(row_stats_kernel<2, kVec>);
+      c.name = kVec ? "row_stats_kernel<2, true>"
+                    : "row_stats_kernel<2, false>";
       break;
     case 4:
-      row_stats_kernel<4, kVec><<<blocks, kThreads, 0, st>>>(logits, out,
-                                                             rows, s);
+      c.fn = reinterpret_cast<const void*>(row_stats_kernel<4, kVec>);
+      c.name = kVec ? "row_stats_kernel<4, true>"
+                    : "row_stats_kernel<4, false>";
       break;
     default:
-      row_stats_kernel<kMaxRowVec, kVec><<<blocks, kThreads, 0, st>>>(
-          logits, out, rows, s);
+      c.fn = reinterpret_cast<const void*>(row_stats_kernel<kMaxRowVec, kVec>);
+      c.name = kVec ? "row_stats_kernel<8, true>"
+                    : "row_stats_kernel<8, false>";
   }
+  return c;
+}
+
+LaunchConfig row_config(long long rows, int s, bool vec) {
+  return vec ? row_config_vec<true>(rows, s) : row_config_vec<false>(rows, s);
 }
 
 // ---- graph stats ----------------------------------------------------
@@ -419,6 +431,18 @@ bool vec_ok(const float* logits, int s) {
   return s % 4 == 0 && reinterpret_cast<uintptr_t>(logits) % 16 == 0;
 }
 
+// kPairsPerBlock tile pairs a block, blocks_per_head blocks a head, and
+// whether the tiles load as float4 (`vec_ok`).
+LaunchConfig graph_config(int bh, int s, bool vec) {
+  const long long blocks =
+      static_cast<long long>(bh) * blocks_per_head(pairs(s));
+  if (vec)
+    return {reinterpret_cast<const void*>(graph_stats_kernel<true>),
+            "graph_stats_kernel<true>", blocks, kThreads, 0};
+  return {reinterpret_cast<const void*>(graph_stats_kernel<false>),
+          "graph_stats_kernel<false>", blocks, kThreads, 0};
+}
+
 }  // namespace
 
 // Floats of workspace one head needs at row length s (the column
@@ -432,13 +456,12 @@ REPRO_EXPORT long long entropy_probe_workspace(int s) {
 REPRO_EXPORT int row_stats_launch(const float* logits, float* out,
                                   long long rows, int s, void* stream) {
   if (rows <= 0 || s <= 0) return 0;
-  const auto blocks =
-      static_cast<unsigned>((rows + kRowWarps - 1) / kRowWarps);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec_ok(logits, s))
-    launch_rows<true>(row_vec(s), blocks, st, logits, out, rows, s);
-  else
-    launch_rows<false>(row_vec(s), blocks, st, logits, out, rows, s);
+  const LaunchConfig c = row_config(rows, s, vec_ok(logits, s));
+  void* args[] = {&logits, &out, &rows, &s};
+  const cudaError_t launched = cudaLaunchKernel(
+      c.fn, dim3(static_cast<unsigned>(c.grid)), dim3(c.block), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -451,15 +474,32 @@ REPRO_EXPORT int graph_stats_launch(const float* logits, const float* rowmax,
                                     unsigned* counter, float* out, int bh,
                                     int s, void* stream) {
   if (bh <= 0 || s <= 0) return 0;
-  const int nt = tiles(s), n_pairs = pairs(s);
-  const auto blocks = static_cast<unsigned>(
-      static_cast<long long>(bh) * blocks_per_head(n_pairs));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec_ok(logits, s))
-    graph_stats_kernel<true><<<blocks, kThreads, 0, st>>>(
-        logits, rowmax, denom, s, nt, n_pairs, work, counter, out);
-  else
-    graph_stats_kernel<false><<<blocks, kThreads, 0, st>>>(
-        logits, rowmax, denom, s, nt, n_pairs, work, counter, out);
+  int nt = tiles(s), n_pairs = pairs(s);
+  const LaunchConfig c = graph_config(bh, s, vec_ok(logits, s));
+  void* args[] = {&logits, &rowmax, &denom, &s, &nt, &n_pairs, &work,
+                  &counter, &out};
+  const cudaError_t launched = cudaLaunchKernel(
+      c.fn, dim3(static_cast<unsigned>(c.grid)), dim3(c.block), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch `row_stats_launch` (which 0: a = rows, b = s) or
+// `graph_stats_launch` (which 1: a = bh, b = s) makes, with c = 1 for
+// float4 loads (s a multiple of 4 on 16-byte aligned logits, as PyTorch
+// allocates them) and 0 for scalar loads, with CUDA's attributes of its
+// instantiation (`launch_attributes`: out[kAttrCount], the name into
+// `name`). Returns the cudaError_t of the queries.
+REPRO_EXPORT int entropy_probe_launch_attrs(int which, long long a,
+                                            long long b, long long c,
+                                            long long* out, char* name,
+                                            int cap) {
+  const int s = static_cast<int>(b);
+  if (which == 0)
+    return launch_attributes(row_config(a, s, c != 0), true, out, name, cap);
+  if (which == 1)
+    return launch_attributes(graph_config(static_cast<int>(a), s, c != 0),
+                             true, out, name, cap);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -19,7 +19,22 @@ REPRO_EXPORT long long stream_tick_smem_bytes(int k, int j) {
 // The card's per-block shared-memory limit (with the opt-in above 48 KB),
 // or -1 with the CUDA error left for cudaGetLastError.
 REPRO_EXPORT long long stream_tick_smem_limit(int device) {
-  return tick_smem_limit(device);
+  return smem_optin_limit(device);
+}
+
+// The launch `stream_tick_launch` makes for `rows` streams, k edge lanes and
+// j node slots, with CUDA's attributes of its instantiation
+// (`launch_attributes`: out[kAttrCount], the name into `name`). `which`
+// is 0, the one kernel family here; j does not change the launch
+// (shared memory grows with k only). Returns the cudaError_t of the
+// queries.
+REPRO_EXPORT int stream_tick_launch_attrs(int which, long long rows,
+                                          long long k, long long j,
+                                          long long* out, char* name, int cap) {
+  (void)which;
+  (void)j;
+  return launch_attributes(tick_config<false>(rows, static_cast<int>(k)),
+                           k >= 0, out, name, cap);
 }
 
 // Resident blocks per SM, streams (warps) per block and registers per

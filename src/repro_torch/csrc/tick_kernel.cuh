@@ -67,12 +67,15 @@
 // shared-memory ceiling; shared memory grows with k only (keys, Δw,
 // validity bits, scratch; about 2.6 KB a stream at k = 128). `TickLayout`
 // below is the one home of the shared-memory layout: the kernel carves
-// each warp's slice from it, and `launch_tick` sizes the launch from it
-// (streams a block, bytes a block) and refuses (cudaErrorInvalidValue) a
-// layout above the card's per-block opt-in limit, which the
-// `*_smem_bytes` / `*_smem_limit` exports let the wrappers check by name
-// first. `tick_residency` reports the resident blocks and streams per SM
-// and the registers a thread.
+// each warp's slice from it, and `tick_config` sizes the launch from it
+// (the instantiation, streams a block, bytes a block) for `launch_tick`,
+// which refuses (cudaErrorInvalidValue) a layout above the card's
+// per-block opt-in limit, which the `*_smem_bytes` / `*_smem_limit`
+// exports let the wrappers check by name first. The `*_launch_attrs`
+// exports report `tick_config`'s launch with CUDA's attributes of the
+// instantiation (registers, spills, shared memory, blocks an SM), and
+// `tick_residency` the resident blocks and streams per SM and the
+// registers a thread.
 //
 // In place. The wrapper may pass the output rows as the input rows (the
 // PyTorch counterpart of JAX's donation). Every gather from the input
@@ -496,46 +499,32 @@ tick_kernel(const float* q, const float* s_total, const float* s_max,
   }
 }
 
-// The card's per-block shared-memory limit (with the opt-in above 48 KB),
-// or -1 with the CUDA error left for cudaGetLastError.
-long long tick_smem_limit(int device) {
-  int limit = 0;
-  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return -1;
-  return limit;
-}
-
-template <bool kEdgeStore>
-using TickFn = decltype(&tick_kernel<kEdgeStore, 0>);
-
 // The instantiation for a layout: keys in registers (2, 4 or 8 a lane)
-// or the shared-memory sort.
+// or the shared-memory sort; one warp a stream, lay.streams streams a
+// block, and the layout's dynamic shared memory.
 template <bool kEdgeStore>
-TickFn<kEdgeStore> tick_fn(const TickLayout& lay) {
+LaunchConfig tick_config(long long rows, int k) {
+  const TickLayout lay(k);
+  LaunchConfig c{nullptr, nullptr, (rows + lay.streams - 1) / lay.streams,
+                 32 * lay.streams, lay.bytes()};
   switch (lay.keys_per_lane()) {
-    case 2: return tick_kernel<kEdgeStore, 2>;
-    case 4: return tick_kernel<kEdgeStore, 4>;
-    case 8: return tick_kernel<kEdgeStore, 8>;
-    default: return tick_kernel<kEdgeStore, 0>;
+    case 2:
+      c.fn = reinterpret_cast<const void*>(tick_kernel<kEdgeStore, 2>);
+      c.name = kEdgeStore ? "tick_kernel<true, 2>" : "tick_kernel<false, 2>";
+      break;
+    case 4:
+      c.fn = reinterpret_cast<const void*>(tick_kernel<kEdgeStore, 4>);
+      c.name = kEdgeStore ? "tick_kernel<true, 4>" : "tick_kernel<false, 4>";
+      break;
+    case 8:
+      c.fn = reinterpret_cast<const void*>(tick_kernel<kEdgeStore, 8>);
+      c.name = kEdgeStore ? "tick_kernel<true, 8>" : "tick_kernel<false, 8>";
+      break;
+    default:
+      c.fn = reinterpret_cast<const void*>(tick_kernel<kEdgeStore, 0>);
+      c.name = kEdgeStore ? "tick_kernel<true, 0>" : "tick_kernel<false, 0>";
   }
-}
-
-// Opt the instantiation in to the layout's dynamic shared memory;
-// cudaErrorInvalidValue when it exceeds the card's per-block limit.
-template <bool kEdgeStore>
-cudaError_t tick_prepare(const TickLayout& lay) {
-  const long long smem = lay.bytes();
-  if (smem <= 48 * 1024) return cudaSuccess;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const long long limit = tick_smem_limit(device);
-  if (limit < 0) return cudaGetLastError();
-  if (smem > limit) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(tick_fn<kEdgeStore>(lay),
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+  return c;
 }
 
 // Resident blocks per SM (from cudaOccupancyMaxActiveBlocksPerMultiprocessor),
@@ -543,18 +532,16 @@ cudaError_t tick_prepare(const TickLayout& lay) {
 // into out[0..2]; returns the cudaError_t.
 template <bool kEdgeStore>
 int tick_residency(int k, int j, int* out) {
-  const TickLayout lay(k);
-  cudaError_t err = tick_prepare<kEdgeStore>(lay);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, tick_fn<kEdgeStore>(lay));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[0], tick_fn<kEdgeStore>(lay), 32 * lay.streams,
-      static_cast<size_t>(lay.bytes()));
-  out[1] = lay.streams;
-  out[2] = attr.numRegs;
-  return static_cast<int>(err);
+  long long attrs[kAttrCount];
+  char name[32];
+  const int err = launch_attributes(tick_config<kEdgeStore>(1, k), true,
+                                    attrs, name, sizeof(name));
+  if (err != 0) return err;
+  if (!attrs[kAttrAccepted]) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = static_cast<int>(attrs[kAttrBlocksPerSm]);
+  out[1] = TickLayout(k).streams;
+  out[2] = static_cast<int>(attrs[kAttrRegs]);
+  return 0;
 }
 
 // Launch one warp per stream row, lay.streams rows a block, on `stream`;
@@ -570,16 +557,17 @@ int launch_tick(const float* q, const float* s_total, const float* s_max,
                 EdgeStore store, int rows, int n, int k, int j,
                 int exact_smax, void* stream) {
   if (rows <= 0) return 0;
-  const TickLayout lay(k);
-  const cudaError_t err = tick_prepare<kEdgeStore>(lay);
+  const LaunchConfig c = tick_config<kEdgeStore>(rows, k);
+  const cudaError_t err = prepare_launch(c);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (rows + lay.streams - 1) / lay.streams;
-  const TickFn<kEdgeStore> fn = tick_fn<kEdgeStore>(lay);
-  fn<<<blocks, 32 * lay.streams, static_cast<size_t>(lay.bytes()),
-       static_cast<cudaStream_t>(stream)>>>(
-      q, s_total, s_max, strengths, node_mask, senders, receivers, dw, w_old,
-      emask, nid, nflag, dist, q_out, s_out, smax_out, str_out, mask_out,
-      store, rows, n, k, j, exact_smax);
+  void* args[] = {&q, &s_total, &s_max, &strengths, &node_mask, &senders,
+                  &receivers, &dw, &w_old, &emask, &nid, &nflag, &dist,
+                  &q_out, &s_out, &smax_out, &str_out, &mask_out, &store,
+                  &rows, &n, &k, &j, &exact_smax};
+  const cudaError_t launched = cudaLaunchKernel(
+      c.fn, dim3(static_cast<unsigned>(c.grid)), dim3(c.block), args,
+      static_cast<size_t>(c.smem), static_cast<cudaStream_t>(stream));
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -138,6 +138,17 @@ vnge_q_kernel(const float* __restrict__ w, float* __restrict__ partial,
   }
 }
 
+// One block of kOneBlockThreads for n at or below kOneBlockN, otherwise a
+// block of kThreads a stripe of kRowsPerBlock rows.
+LaunchConfig vnge_q_config(int n) {
+  const int blocks = grid_blocks(n);
+  if (blocks == 1)
+    return {reinterpret_cast<const void*>(vnge_q_kernel<true>),
+            "vnge_q_kernel<true>", 1, kOneBlockThreads, 0};
+  return {reinterpret_cast<const void*>(vnge_q_kernel<false>),
+          "vnge_q_kernel<false>", blocks, kThreads, 0};
+}
+
 }  // namespace
 
 // Partials (rows of 4 floats) a launch for n needs in its workspace; 1
@@ -150,13 +161,25 @@ REPRO_EXPORT int vnge_q_blocks(int n) { return grid_blocks(n); }
 REPRO_EXPORT int vnge_q_stats_launch(const float* w, float* partial,
                                      unsigned* counter, float* out, int n,
                                      void* stream) {
-  const int blocks = grid_blocks(n);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (blocks == 1)
-    vnge_q_kernel<true><<<1, kOneBlockThreads, 0, s>>>(w, partial, counter,
-                                                       out, n);
-  else
-    vnge_q_kernel<false><<<blocks, kThreads, 0, s>>>(w, partial, counter,
-                                                     out, n);
+  const LaunchConfig c = vnge_q_config(n);
+  void* args[] = {&w, &partial, &counter, &out, &n};
+  const cudaError_t launched = cudaLaunchKernel(
+      c.fn, dim3(static_cast<unsigned>(c.grid)), dim3(c.block), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch `vnge_q_stats_launch` makes for an (n, n) W (which 0,
+// a = n), with CUDA's attributes of its instantiation
+// (`launch_attributes`: out[kAttrCount], the name into `name`). Returns
+// the cudaError_t of the queries.
+REPRO_EXPORT int vnge_q_launch_attrs(int which, long long a, long long b,
+                                     long long c, long long* out, char* name,
+                                     int cap) {
+  (void)b;
+  (void)c;
+  if (which != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_attributes(vnge_q_config(static_cast<int>(a)), true, out,
+                           name, cap);
 }

@@ -68,7 +68,7 @@ class FingerFleet:
         self._dead: Dict[Tuple[int, int], DeadShard] = {}
         # The per-pool score plane: pool -> [(shard_ids, (S, B) device
         # score matrix)] per stacked launch of the latest tick, plus
-        # its lazily-read host copy (one transfer per group per tick,
+        # its lazily-read host copy (one transfer per pool per tick,
         # shared by every scores()/top_anomalies() read).
         self._pool_scores_dev: Dict[int, list] = {}
         self._pool_scores_host: Dict[int, Dict[int, np.ndarray]] = {}
@@ -409,21 +409,24 @@ class FingerFleet:
     def _host_score_row(self, pool_i: int,
                         shard_i: int) -> Optional[np.ndarray]:
         """One shard's (B,) host score row out of the tick's score
-        plane — read lazily with ONE device→host transfer per pool
-        layout group per tick, then indexed for free by every
-        per-tenant read and top-k merge. None when the shard ticked
-        outside the plane (shard by shard, the residency fallback,
-        before the first tick)."""
+        plane — read lazily with ONE device→host transfer per pool per
+        tick (its layout groups' (S, B) matrices joined on the device
+        first), then indexed for free by every per-tenant read and
+        top-k merge. None when the shard ticked outside the plane (shard
+        by shard, the residency fallback, before the first tick)."""
         rows = self._pool_scores_host.get(pool_i)
         if rows is None:
             planes = self._pool_scores_dev.get(pool_i)
             if planes is None:
                 return None
-            rows = {}
-            for shard_ids, mat in planes:
-                host = mat.cpu().numpy()  # the group's one transfer
-                for j, s in enumerate(shard_ids):
-                    rows[s] = host[j]
+            if not planes:  # every group ticked shard by shard
+                rows = {}
+            else:
+                mats = [mat for _, mat in planes]
+                joined = mats[0] if len(mats) == 1 else torch.cat(mats)
+                host = joined.cpu().numpy()  # the pool's one transfer
+                ids = [s for shard_ids, _ in planes for s in shard_ids]
+                rows = dict(zip(ids, host))
             self._pool_scores_host[pool_i] = rows
         return rows.get(shard_i)
 
@@ -431,7 +434,7 @@ class FingerFleet:
                ) -> Dict[str, float]:
         """Latest per-tenant JSdist scores. Stacked-tick pools read the
         host copy of the score plane (at most one device→host transfer
-        per layout group per tick, shared by every tenant); other
+        per pool per tick, shared by every tenant); other
         shards read one slot each (`score_at`). Tenants stranded on a
         dead shard — or (re)installed since the shard last ticked —
         report their last known score."""

@@ -32,6 +32,18 @@ says otherwise, read once at import, as the reference reads it), and
 as a per-grid-step VMEM fit, answered without raising. A group that
 fails either ticks shard by shard.
 
+``launch_attrs`` reads a library's ``<name>_launch_attrs`` export: the
+launch its launcher makes for given shapes (instantiation, grid, block,
+dynamic shared memory, from the helper the launcher itself calls) with
+CUDA's attributes of that instantiation (registers, spills, static
+shared memory, blocks an SM). `repro_torch.analysis.smem` checks them.
+
+``FIRST_USE`` counts the first-use costs a warmed serving path must not
+pay: a kernel library load here (``library_load``) and a cold
+`serving.plans.build_plan` (``build_plan``), each bumped through
+`note_first_use`; `repro_torch.analysis.sanitize.first_use_budget`
+reads them.
+
 Build flags: ``-gencode arch=compute_90a,code=sm_90a -O3`` plus
 ``--fmad=false``. The scores are the square root of a difference of
 entropies that is about 0 on an unchanged stream, so contracting
@@ -60,6 +72,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fPIC")
 
 Device = Union[str, torch.device, None]
+
+
+FIRST_USE = {"library_load": 0, "build_plan": 0}
+_FIRST_USE_LOCK = threading.Lock()
+
+
+def note_first_use(kind: str) -> None:
+    """Count one first-use event of ``kind`` (a key of ``FIRST_USE``)."""
+    with _FIRST_USE_LOCK:
+        FIRST_USE[kind] += 1
 
 
 class KernelBuildError(RuntimeError):
@@ -121,6 +143,7 @@ class _Library:
                 t0 = time.perf_counter()
                 self.libs = _build_and_load()
                 self.build_seconds = time.perf_counter() - t0
+                note_first_use("library_load")
         return self.libs
 
 
@@ -210,6 +233,36 @@ def stream_handle(device: torch.device) -> int:
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+LAUNCH_ATTRS = ("grid", "block", "dyn_smem", "static_smem", "registers",
+                "local_bytes", "max_threads", "blocks_per_sm", "smem_limit",
+                "accepted")
+
+
+def launch_attrs(name: str, which: int, a: int, b: int = 0,
+                 c: int = 0) -> Dict[str, object]:
+    """The launch kernel library ``name``'s launcher ``which`` makes for
+    the shape arguments (a, b, c) and CUDA's attributes of the
+    instantiation it picks, as the ``<name>_launch_attrs`` export
+    reports them (`launch_attributes` in ``csrc/common.cuh``): the
+    keys of ``LAUNCH_ATTRS`` plus ``kernel``, the instantiation's
+    name. ``accepted`` says whether the launcher would launch it (its
+    own range checks and the shared-memory opt-in); ``blocks_per_sm``
+    is 0 where it would not."""
+    fn = bind(name, f"{name}_launch_attrs",
+              (ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+               ctypes.c_longlong, ctypes.c_void_p, ctypes.c_char_p,
+               ctypes.c_int))
+    out = (ctypes.c_longlong * len(LAUNCH_ATTRS))()
+    buf = ctypes.create_string_buffer(64)
+    check_launch(name, fn(int(which), int(a), int(b), int(c),
+                          ctypes.cast(out, ctypes.c_void_p), buf,
+                          len(buf)))
+    rec: Dict[str, object] = dict(zip(LAUNCH_ATTRS, (int(v) for v in out)))
+    rec["accepted"] = bool(rec["accepted"])
+    rec["kernel"] = buf.value.decode()
+    return rec
 
 
 def smem_bytes(name: str, k: int, j: int) -> int:

@@ -186,8 +186,9 @@ def compare(got: Tuple[torch.Tensor, SparseStreamState],
                                err_msg=f"{label}: dist")
     errs.append(np.abs(dg[big] - dw_[big]).max(initial=0.0))
     for field in ("q", "s_total", "s_max", "strengths", "edge_weights"):
-        a = getattr(s_got, field).cpu().numpy()
-        w = getattr(s_want, field).cpu().numpy()
+        # one pull a state field: the fields are separate tensors
+        a = getattr(s_got, field).cpu().numpy()  # lint: disable=per-item-host-sync
+        w = getattr(s_want, field).cpu().numpy()  # lint: disable=per-item-host-sync
         np.testing.assert_allclose(a, w, atol=ATOL, rtol=RTOL,
                                    err_msg=f"{label}: {field}")
         errs.append(np.abs(a - w).max(initial=0.0))

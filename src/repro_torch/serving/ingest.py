@@ -28,6 +28,15 @@ named `IngestError` — a dense delta against ``n_pad``, a slot-space
 delta (``method="sparse_tick"``) against ``n_slots`` — and bound the
 queue at ``config.max_queue``.
 
+A migration builds a new ingestor for the new plan, which takes over
+the old one's stagers (`make_ingestor(..., previous=)`): the side
+streams, and with them the caching allocator's blocks of each stream,
+and the pinned slots. A fresh side stream would have no cached blocks,
+so the first `put` after every migration would pay a ``cudaMalloc``
+(and fresh pinned slots a ``cudaHostAlloc``): a first-use cost that
+`warm_next_layouts` cannot pay ahead. The delta's shapes do not depend
+on the layout, so the slots still fit.
+
 Layout migrations: after a `FingerService.compact` (or any migration),
 producers may still send deltas addressed in an older layout for a
 grace period. The ingestor holds two old→new index-map tables and
@@ -339,8 +348,14 @@ class DoubleBufferedIngestor(SyncIngestor):
     def __init__(self, config: ServiceConfig, plan,
                  remaps: Optional[Dict[int, np.ndarray]] = None,
                  remaps_by_gen: Optional[Dict[int, np.ndarray]] = None,
-                 generation: int = 0):
+                 generation: int = 0,
+                 previous: Optional["DoubleBufferedIngestor"] = None):
         super().__init__(config, plan, remaps, remaps_by_gen, generation)
+        cuda = [d for d in plan.shard_devices if d.type == "cuda"]
+        if previous is not None and \
+                [st.device for st in previous._stagers] == cuda:
+            self._stagers = previous._stagers  # the migrated service's
+            return
         sides: Dict[torch.device, torch.cuda.Stream] = {}
         self._stagers: List[_Stager] = []
         for dev in plan.shard_devices:
@@ -366,8 +381,14 @@ class DoubleBufferedIngestor(SyncIngestor):
 def make_ingestor(config: ServiceConfig, plan,
                   remaps: Optional[Dict[int, np.ndarray]] = None,
                   remaps_by_gen: Optional[Dict[int, np.ndarray]] = None,
-                  generation: int = 0) -> SyncIngestor:
-    """The ingestor of ``config.ingestion`` feeding ``plan``."""
-    cls = DoubleBufferedIngestor \
-        if config.ingestion == "double_buffered" else SyncIngestor
-    return cls(config, plan, remaps, remaps_by_gen, generation)
+                  generation: int = 0,
+                  previous: Optional[SyncIngestor] = None) -> SyncIngestor:
+    """The ingestor of ``config.ingestion`` feeding ``plan``; a
+    double-buffered one takes over the stagers of ``previous`` (the
+    ingestor a migration replaces) when they serve the same devices."""
+    if config.ingestion != "double_buffered":
+        return SyncIngestor(config, plan, remaps, remaps_by_gen, generation)
+    return DoubleBufferedIngestor(
+        config, plan, remaps, remaps_by_gen, generation,
+        previous=previous if isinstance(previous, DoubleBufferedIngestor)
+        else None)

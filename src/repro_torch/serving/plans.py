@@ -51,6 +51,7 @@ from repro_torch.distributed.sharding import (DeviceGrid, Sharded,
 from repro_torch.engine.stream import StreamEngine
 from repro_torch.graphs.layout import NodeLayout
 from repro_torch.graphs.types import GraphDelta
+from repro_torch.kernels import dispatch
 from repro_torch.serving.config import ServiceConfig, ServiceConfigError
 
 Layout = Union[NodeLayout, SparseLayout]
@@ -433,7 +434,9 @@ def default_grid(config: ServiceConfig, device: torch.device) -> DeviceGrid:
 def build_plan(config: ServiceConfig, where: Where) -> ExecutionPlan:
     """The plan of ``config.placement`` on a device (a sharded placement
     then gets `default_grid`) or a `DeviceGrid` (sharded placements
-    only)."""
+    only). Each call counts as a first use (`dispatch.FIRST_USE`): a
+    warmed migration takes its plan from the `PlanCache` instead."""
+    dispatch.note_first_use("build_plan")
     if config.placement == "local":
         if isinstance(where, DeviceGrid):
             raise ServiceConfigError(

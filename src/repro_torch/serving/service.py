@@ -195,14 +195,17 @@ class FingerService:
         self._remaps: Dict[int, np.ndarray] = dict(remaps or {})
         self._remaps_gen: Dict[int, np.ndarray] = dict(remaps_gen or {})
         self._plan_cache = PlanCache()
-        self._ingestor = self._make_ingestor()
+        self._ingestor = self._make_ingestor(None)
         self._last_scores: Optional[torch.Tensor] = None
         self._closed = False
 
-    def _make_ingestor(self):
+    def _make_ingestor(self, previous):
+        """The ingestor of the current config and plan; after a migration
+        it takes over ``previous``'s side streams and pinned slots."""
         return make_ingestor(self._config, self._plan, self._remaps,
                              self._remaps_gen,
-                             generation=self._layout.generation)
+                             generation=self._layout.generation,
+                             previous=previous)
 
     @staticmethod
     def _build_plan(config: ServiceConfig, device: Device,
@@ -690,7 +693,7 @@ class FingerService:
         self._swap_plan(self._config.with_(n_pad=new_layout.n_pad))
         self._layout = new_layout
         self._states = states
-        self._ingestor = self._make_ingestor()
+        self._ingestor = self._make_ingestor(self._ingestor)
         for deltas in pending:
             self._ingestor.requeue(deltas)
 
@@ -890,7 +893,7 @@ class FingerService:
         for sm in self._slot_maps:
             sm.grow(new_capacity)
         self._states = states
-        self._ingestor = self._make_ingestor()
+        self._ingestor = self._make_ingestor(self._ingestor)
         for d in pending:
             self._ingestor.requeue(d)
         return new_capacity

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis.sanitize import no_transfers
 from repro_torch.fleet import FingerFleet, FleetConfig, PoolSpec
 from repro_torch.graphs.types import EdgeList, GraphDelta
 from repro_torch.kernels import dispatch
@@ -314,7 +315,8 @@ def test_residency_fallback_ticks_shard_by_shard(cuda, monkeypatch):
 def test_no_device_sync_in_ingest_and_poll(cuda):
     """Once every pinned slot has been used, a fleet tick's `ingest` and
     `poll` (the stacking, both kernels, the score plane left on the
-    card) pass `set_sync_debug_mode("error")`."""
+    card) pass `no_transfers` (no host materialization, and
+    `set_sync_debug_mode("error")`)."""
     tenants = Tenants(seed=5)
     fleet = FingerFleet.open(_config(True), device=cuda)
     tenants.admit(fleet)
@@ -324,13 +326,10 @@ def test_no_device_sync_in_ingest_and_poll(cuda):
         fleet.poll()
     torch.cuda.synchronize()
     before = dict(st_ops.LAUNCHES)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with no_transfers(cuda, "fleet ingest + poll"):
         for d in ticks[4:]:
             fleet.ingest(d)
             fleet.poll()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     assert st_ops.LAUNCHES["stream_tick_stacked"] == \
         before["stream_tick_stacked"] + 4
     assert all(np.isfinite(v) for v in fleet.scores().values())

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis.sanitize import no_transfers
 from repro_torch.graphs.generators import erdos_renyi
 from repro_torch.graphs.types import EdgeList, GraphDelta
 from repro_torch.kernels.sparse_tick import ops as sp_ops
@@ -209,13 +210,10 @@ def test_no_device_sync_in_ingest_and_poll(cuda):
         svc.poll()
     torch.cuda.synchronize()
     before = st_ops.LAUNCHES["stream_tick"]
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with no_transfers(cuda, "ingest + poll"):
         for d in ticks[4:]:
             svc.ingest(d)
             svc.poll()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     assert st_ops.LAUNCHES["stream_tick"] == before + 4
     assert np.isfinite(svc.scores()).all()
 

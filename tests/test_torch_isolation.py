@@ -85,7 +85,11 @@ def test_import_every_submodule_loads_no_jax_and_no_repro():
               "repro_torch.fleet.recovery", "repro_torch.fleet.router",
               "repro_torch.distributed", "repro_torch.distributed.sharding",
               "repro_torch.distributed.finger_dist",
-              "repro_torch.distributed.compression")
+              "repro_torch.distributed.compression",
+              "repro_torch.analysis", "repro_torch.analysis.__main__",
+              "repro_torch.analysis.sanitize", "repro_torch.analysis.lint",
+              "repro_torch.analysis.smem", "repro_torch.analysis.tick_audit",
+              "repro_torch.analysis.sentinel")
     assert set(ported) <= set(names)
     code = ("import importlib, sys\n"
             f"for m in {names!r}: importlib.import_module(m)\n"

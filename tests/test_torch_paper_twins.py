@@ -184,7 +184,7 @@ def test_run_harness_exit_status_and_only(capsys, monkeypatch):
 
 def test_run_harness_names_the_reference_paper_suites():
     text = (ROOT / "benchmarks" / "run.py").read_text()
-    assert sorted(twin_run.SUITES) == ["fig1", "fig2", "fig4", "table2",
-                                       "table3"]
+    assert sorted(twin_run.SUITES) == ["analysis", "fig1", "fig2", "fig4",
+                                       "table2", "table3"]
     for name in twin_run.SUITES:  # each under the reference's own name
         assert f'"{name}": ' in text
