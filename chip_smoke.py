@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed S] [--batch B]
 
 Run from the root of a checkout; it imports `repro_torch` from
-``src/`` and never JAX or the JAX package. Twelve phases, each printing
+``src/`` and never JAX or the JAX package. Thirteen phases, each printing
 a line of its own; any failure exits non-zero:
 
 1. build   — the hand-written kernels from ``src/repro_torch/csrc/``,
@@ -305,11 +305,68 @@ a line of its own; any failure exits non-zero:
              Prints one line a check with its seconds, the audit's
              targets, the smem table and the chains' phases; the whole
              report goes to ``build/analysis_report.json``.
+13. sharding — the model-sharding rules (`single_pod_rules(16)`) on
+             `launch.mesh.make_host_mesh()`, a 1×1 ("data", "model")
+             mesh over a world-1 NCCL group: granite-moe-3b-a800m at
+             full width, cut to phase 6's 8 layers (heads 24 → 32,
+             experts 40 → 48, vocabulary 49,155 → 49,280, its 8 KV
+             heads unsharded), its parameters DTensors placed by
+             `param_shardings`; one train step at batch 4 × 512 with
+             FINGER telemetry (the routing graph before and after the
+             step: ``vnge_q`` three times; the attention probe over the
+             padded heads: ``row_stats`` and ``graph_stats`` once; each
+             probe gathers its DTensor once) and the prefill. Gates: the
+             same padded model on plain tensors (loss, every parameter
+             after the step, the probes, the logits) within 1e-5, saying
+             whether bit-equal; the unpadded model on the trained
+             weights cut to the real heads and experts (each layer
+             weight scaled to 1/sqrt(its fan-in), as the CPU parity
+             tests draw them: at the init's 1/sqrt(L) the activations
+             grow by orders of magnitude a layer and turn last-bit
+             rounding into 1e-3 logit gaps, printed beside) against the
+             padded DTensor model on them zero-padded, both routing
+             every token to all 40 real experts with a capacity that
+             holds every token (the top-8 choice is discrete: the two
+             models' matmuls round apart in the last bit and flip
+             near-tied choices, so the top-8 gap is printed, not gated;
+             the padded capacity divides by 48 experts, the unpadded by
+             40): logits within 1e-4 (× the largest logit), the cross
+             entropy within 1e-5 relative, the aux loss printed beside
+             its ratio 48/40 (the reference's aux multiplies by the
+             padded count); 4 decode steps of that model over an f32
+             cache laid out by the cache's logical axes against the
+             prefill within 1e-4. Then mamba2-130m
+             (SSM heads 24 → 32) and whisper-small (heads 12 → 16)
+             whole: DTensor against plain within 1e-5, and whisper's
+             padded-vs-unpadded equality (mamba2's is printed: its gated
+             RMSNorm averages over the padded inner width, in the
+             reference too). Then the memory model's cross-check:
+             `launch.dryrun.dryrun_cell` of granite's cell (f32
+             parameters) on a 1×1 fake mesh in a process of its own;
+             its parameter, moment and step bytes must equal exactly
+             what the card's allocator was asked for them
+             (``requested_bytes`` of `torch.cuda.memory_stats`, from
+             fresh segments after `empty_cache`), printed beside
+             `torch.cuda.memory_allocated`, which counts whole blocks
+             (the step's 4 B take 512, and a cached block is not split
+             for a remainder under 1 MB); its peak is printed beside
+             the state plus the step's `torch.cuda.max_memory_allocated`
+             above it.
+             Last, the dry run of all 80 cells (10 architectures × 4
+             shapes × 16×16 and 2×16×16), in a process of its own
+             (`python -m repro_torch.launch.dryrun --both-meshes --jobs
+             8` at nice 10, to ``build/dryrun.jsonl``): every cell OK
+             or SKIP, the SKIP set the reference's ``skip_reason`` set;
+             one line a cell. It starts when phase 13 does, so that no
+             earlier phase's host-bound timings share the host with its
+             workers; phase 13's own checks run beside it, and their
+             seconds are taken under that load.
 
 Each phase prints its seconds. Every wrapper's launch count is set to 0
 just before phases 3 (and again before its lifecycle part), 4, 5, 6,
 7, 8, each part of 9, each kernel-reaching example of 10, each
-serve and train path of 11 and phase 12, and read just after each path
+serve and train path of 11, phase 12 and phase 13's DTensor step, and
+read just after each path
 (phase 12's parity cases are comparisons: `smem` puts the counts back
 after them); a kernel's
 ``launches`` in the kernels line is the sum over those paths. Kernel
@@ -363,6 +420,8 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -430,6 +489,13 @@ MODEL_TRAIN = (("mamba2-130m", 8, 1024), ("whisper-small", 4, 448),
                ("internvl2-1b", 4, 768), ("jamba-1.5-large-398b", 4, 256))
 MODEL_STEPS, MODEL_PROBE_EVERY, MODEL_LR = 3, 2, 1e-3
 GATE_TOKENS, GATE_TOL = 16, 2e-3  # the reference's decode == prefill
+# phase 13: the model-sharding rules at TP 16 on a 1×1 NCCL mesh (the
+# card is one rank): granite at phase 6's cut, batch × seq, decode
+# steps; then mamba2 and whisper whole (arch, batch, seq); the dry run
+# runs DRY_JOBS cells at a time from the start of phase 13
+SHARD_TP, SHARD_BATCH, SHARD_SEQ, SHARD_DECODE = 16, 4, 512, 4
+SHARD_MODELS = (("mamba2-130m", 2, 256), ("whisper-small", 2, 64))
+DRY_JOBS, DRY_TIMEOUT = 8, 450
 CHECKED = ("bsr_spmv", "delta_stats", "entropy_probe", "sparse_tick",
            "stream_tick", "vnge_q")
 SP_FIELDS = ("q", "s_total", "s_max", "strengths", "node_mask",
@@ -3533,7 +3599,6 @@ def start_gloo_ranks(out):
     ``cuda:0``, each this script with ``--dist-rank``: phase 7's G and
     the start vector go to their directory, and they start up and wait
     there for a go file. Returns (directory, processes)."""
-    import os
     import shutil
     import socket
 
@@ -4211,6 +4276,560 @@ def phase_analysis(args, torch, out, dev):
         raise AssertionError(f"phase 12 launched no tick kernel: {got}")
 
 
+# --------------------------------------------------------------------------
+# Phase 13: the model-sharding rules on a DeviceMesh and the dry run
+# --------------------------------------------------------------------------
+
+def start_dryrun():
+    """The meta-device dry run of every (arch × shape × mesh) cell in a
+    process of its own (its fake process groups cannot share this
+    process's default group), started with phase 13 at a low CPU
+    priority, DRY_JOBS cells at a time → (process, its JSONL path)."""
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    path = build / "dryrun.jsonl"
+    path.unlink(missing_ok=True)
+    # CPU only: it holds nothing on the card (fits_hbm is then against
+    # the H100's 80 GB)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    log = open(build / "dryrun.log", "w")
+    proc = subprocess.Popen(
+        ["nice", "-n", "10", sys.executable, "-m", "repro_torch.launch.dryrun",
+         "--arch", "all", "--shape", "all", "--both-meshes", "--out",
+         str(path), "--jobs", str(DRY_JOBS)], env=env, stdout=log,
+        stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, path
+
+
+def zero_padded(torch, unpadded, shapes):
+    """Each leaf of ``unpadded`` zero-padded at the end of every axis to
+    the shape ``shapes`` names for it (a dict of flat names)."""
+    from repro_torch.models.params import flatten_names, unflatten_names
+
+    out = {}
+    for k, a in flatten_names(unpadded).items():
+        pad = []
+        for n, m in reversed(list(zip(shapes[k], a.shape))):
+            pad += [0, n - m]
+        out[k] = torch.nn.functional.pad(a, pad)
+    return unflatten_names(out)
+
+
+def laid_out(mesh, rules, tree, axes):
+    """A tree of tensors as DTensors laid out by its logical axes."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.sharding import named_sharding
+
+    if isinstance(tree, dict):
+        return {k: laid_out(mesh, rules, tree[k], axes[k]) for k in tree}
+    if isinstance(tree, tuple):
+        return type(tree)(*(laid_out(mesh, rules, a, b)
+                            for a, b in zip(tree, axes)))
+    return distribute_tensor(tree, mesh, list(
+        named_sharding(mesh, rules, axes).placements))
+
+
+def diff(torch, a, b) -> float:
+    """Largest |a − b| of two tensors (DTensors gathered first)."""
+    from torch.distributed.tensor import DTensor
+
+    a = a.full_tensor() if isinstance(a, DTensor) else a
+    b = b.full_tensor() if isinstance(b, DTensor) else b
+    return float((a.float() - b.float()).abs().max())
+
+
+def gate(label, err, tol, scale=1.0) -> str:
+    """Raise if ``err`` exceeds ``tol`` (× ``scale``); say whether the
+    two were bit-equal."""
+    if not err <= tol * max(scale, 1.0):
+        raise AssertionError(f"{label}: differs by {err:.3e} (gate "
+                             f"{tol} x max(1, {scale:.3g}))")
+    return "bit-equal" if err == 0 else f"within {err:.3e}"
+
+
+def sharded_run(torch, cfg, rules, mesh, params, batch, dev, probes):
+    """One `build_train_step` step on ``params`` (plain or DTensors),
+    with the probes around it when ``probes``: the routing graph before
+    and after (the tracker's JS distance launches ``vnge_q``) and the
+    attention probe after → (params, loss, {probe: value}, prefill
+    logits of the batch)."""
+    from repro_torch.models.api import build_forward_fn
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.train.step import build_train_step
+    from repro_torch.train.telemetry import (RoutingGraphTracker,
+                                             attention_entropy_probe,
+                                             routing_graph)
+
+    step = build_train_step(cfg, AdamWConfig(lr_peak=TRAIN_LR,
+                                             warmup_steps=0), rules=rules)
+    res = {}
+    tracker = RoutingGraphTracker()
+    if probes:
+        tracker.update(routing_graph(params, batch, cfg, rules=rules), 0)
+    opt = init_state(params)
+    res["step_peak"] = 0  # read on the card only
+    if dev.type == "cuda":  # the step's own peak above what it holds
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    params, opt, metrics = step(params, opt, batch)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        res["step_peak"] = torch.cuda.max_memory_allocated() - held
+    del opt
+    if probes:
+        res["entropy"] = attention_entropy_probe(
+            params, batch["tokens"], cfg, rules=rules)
+        res["jsdist"] = tracker.update(routing_graph(
+            params, batch, cfg, rules=rules), 1)
+    with torch.no_grad():
+        logits = build_forward_fn(cfg, rules=rules)(params, batch)
+    return params, metrics["loss"], res, logits
+
+
+def decode_vs_prefill(torch, cfg, rules, mesh, params, toks, dev) -> float:
+    """SHARD_DECODE decode steps over an f32 cache laid out by the
+    cache's logical axes against the prefill of the same tokens."""
+    from repro_torch.models.api import (build_decode_fn, build_forward_fn,
+                                        cache_axes, init_cache_arrays)
+
+    b = toks.shape[0]
+    with torch.no_grad():
+        full = build_forward_fn(cfg, rules=rules)(
+            params, {"tokens": toks[:, :SHARD_DECODE]})
+        cache = init_cache_arrays(cfg, b, SHARD_DECODE, dev, torch.float32,
+                                  rules)
+        cache = laid_out(mesh, rules, cache, cache_axes(cfg, rules))
+        dec = build_decode_fn(cfg, rules)
+        steps = []
+        for i in range(SHARD_DECODE):
+            logits, cache = dec(params, toks[:, i:i + 1], cache, i)
+            steps.append(logits[:, 0])
+    v = cfg.vocab_size
+    return diff(torch, torch.stack(steps, 1)[..., :v], full[..., :v])
+
+
+def fan_in(name: str, shape) -> int:
+    """The contracted width of a stacked (L, ...) layer weight."""
+    if name.endswith("/wo"):
+        return shape[1] * shape[2]
+    if "/moe/w_" in name:
+        return shape[2]
+    return shape[1]
+
+
+def padded_vs_unpadded(torch, cfg, rules, mesh, trained, batch, dev,
+                       rescale=True):
+    """The padded model (DTensors) on zero-padded weights against the
+    unpadded one (plain tensors) on the trained model's weights cut to
+    the real heads and experts → (logit diff, cross-entropy diff, aux
+    padded, aux unpadded, logit scale, the padded DTensor parameters).
+    ``rescale``: every stacked
+    layer weight scaled from the init's 1/sqrt(L) to 1/sqrt(its
+    fan-in), as the CPU parity tests redraw them (the init's scale
+    makes a model whose activations grow by orders of magnitude a
+    layer, which turns the last-bit rounding of a 32-head against a
+    24-head product into logit gaps of 1e-3)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import transformer
+    from repro_torch.models.api import build_forward_fn, model_param_defs
+    from repro_torch.models.params import (distribute_params, flatten_names,
+                                           param_shardings, unflatten_names)
+
+    full = {k: (v.full_tensor() if isinstance(v, DTensor) else v)
+            for k, v in flatten_names(trained).items()}
+    unp_defs = flatten_names(model_param_defs(cfg))
+    pad_defs = model_param_defs(cfg, rules)
+    unp = {k: full[k][tuple(slice(0, n) for n in d.shape)].clone()
+           for k, d in unp_defs.items()}
+    if rescale:
+        for k, a in unp.items():
+            if a.ndim > 2 and k.startswith(("blocks/", "enc/", "dec/")):
+                a.mul_((a.shape[0] / fan_in(k, a.shape)) ** 0.5)
+    unp = unflatten_names(unp)
+    padded = distribute_params(zero_padded(
+        torch, unp, {k: d.shape for k, d in flatten_names(
+            pad_defs).items()}), param_shardings(pad_defs, mesh, rules))
+    v = cfg.vocab_size
+    with torch.no_grad():
+        if cfg.is_encoder_decoder:
+            lu = build_forward_fn(cfg)(unp, batch["plain"])
+            lp = build_forward_fn(cfg, rules=rules)(padded, batch["dt"])
+            aux_u = aux_p = 0.0
+        else:
+            lu, aux_u = transformer.forward(unp, batch["plain"]["tokens"],
+                                            cfg)
+            from repro_torch.models.api import spmd
+
+            with spmd(padded):
+                lp, aux_p = transformer.forward(padded, batch["dt"]["tokens"],
+                                                cfg, rules=rules)
+        lp = lp.full_tensor() if isinstance(lp, DTensor) else lp
+        aux_p = aux_p.full_tensor() if isinstance(aux_p, DTensor) else aux_p
+        labels = batch["plain"]["labels"]
+        from repro_torch.models.layers import cross_entropy_loss
+
+        ce_u = cross_entropy_loss(lu, labels)
+        ce_p = cross_entropy_loss(lp, labels)
+    return (diff(torch, lp[..., :v], lu[..., :v]),
+            abs(float(ce_p) - float(ce_u)) / abs(float(ce_u)),
+            float(aux_p), float(aux_u), float(lu[..., :v].abs().max()),
+            padded)
+
+
+def phase_sharding(args, torch, out, dev):
+    """Phase 13: the dry run of every cell started in a process of its
+    own, then beside it the model-sharding rules on a 1×1 NCCL mesh and
+    the memory model's cross-check; then the dry run's cells."""
+    proc, path = start_dryrun()
+    try:
+        rules_and_cross_check(args, torch, out, dev)
+        t0 = time.perf_counter()
+        rc = proc.wait(timeout=DRY_TIMEOUT)
+        waited = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:  # a failed check leaves it running
+            os.killpg(proc.pid, signal.SIGKILL)  # it and its workers
+            proc.wait()
+    rows = [json.loads(line) for line in path.read_text().splitlines()]
+    dryrun_rows(rows, rc, waited)
+
+
+def rules_and_cross_check(args, torch, out, dev):
+    """Phase 13's checks on the card: the rules on a 1×1 NCCL mesh, then
+    the memory model's cross-check."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.sharding import (named_sharding,
+                                                  single_pod_rules)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import model_param_defs
+    from repro_torch.models.attention import attn_dims
+    from repro_torch.models.moe import effective_experts
+    from repro_torch.models.params import (count_params, distribute_params,
+                                           flatten_names, init_params,
+                                           map_tree, param_shardings)
+    from repro_torch.optim.adamw import init_state
+    from repro_torch.train.telemetry import GATHERS
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh()
+    rules = single_pod_rules(SHARD_TP)
+    print(f"  mesh {mesh} on backend {dist.get_backend()}; rules "
+          f"{rules}")
+    try:
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                                  n_layers=TRAIN_LAYERS)
+        dims, v_pad = attn_dims(cfg, rules), model_param_defs(
+            cfg, rules)["embed"].shape[0]
+        e_pad = effective_experts(cfg, rules)
+        got = (cfg.n_heads, dims.n_q, cfg.n_experts, e_pad, cfg.vocab_size,
+               v_pad, dims.kv_sharded)
+        print(f"  {cfg.name} (n_layers={TRAIN_LAYERS} of "
+              f"{get_config(TRAIN_ARCH).n_layers}, phase 6's cut; batch "
+              f"{SHARD_BATCH} x seq {SHARD_SEQ}): heads {got[0]} -> "
+              f"{got[1]}, experts {got[2]} -> {got[3]}, vocab {got[4]} -> "
+              f"{got[5]}, {cfg.n_kv_heads} KV heads sharded: {got[6]}; "
+              f"{count_params(model_param_defs(cfg)) / 1e6:.1f} M -> "
+              f"{count_params(model_param_defs(cfg, rules)) / 1e6:.1f} M "
+              "parameters")
+        if got != (24, 32, 40, 48, 49155, 49280, False):
+            raise AssertionError(f"granite padding {got}")
+        defs = model_param_defs(cfg, rules)
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        plain = init_params(defs, gen, device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (SHARD_BATCH, SHARD_SEQ),
+                             generator=gen, device=dev, dtype=torch.int32)
+        batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+        bpl = list(named_sharding(mesh, rules, ("batch", None)).placements)
+        dbatch = {k: distribute_tensor(x, mesh, bpl)
+                  for k, x in batch.items()}
+        # the state the dry run's argument bytes are held to, measured
+        # from fresh segments: `memory_allocated` counts whole allocator
+        # blocks (a cached block is not split for a remainder under 1 MB),
+        # the allocator's `requested_bytes` what the tensors asked for
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+        def allocated():
+            torch.cuda.synchronize()
+            return (torch.cuda.memory_allocated(),
+                    torch.cuda.memory_stats()["requested_bytes.all.current"])
+
+        a0 = allocated()
+        dparams = distribute_params(map_tree(lambda a: a.clone(), plain),
+                                    param_shardings(defs, mesh, rules))
+        a1 = allocated()
+        opt = init_state(dparams)
+        a2 = allocated()
+        held = {"params": (a1[0] - a0[0], a1[1] - a0[1]),
+                "opt": (a2[0] - a1[0], a2[1] - a1[1])}
+        del opt
+        # the main path: the DTensor model's step with its probes
+        zero_counts()
+        gathers = dict(GATHERS)
+        t0 = time.perf_counter()
+        dparams, dloss, dprobe, dlogits = sharded_run(
+            torch, cfg, rules, mesh, dparams, dbatch, dev, probes=True)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        counts = read_counts(out)
+        gathered = {k: GATHERS[k] - gathers[k] for k in GATHERS}
+        launched = {k: n for k, n in counts.items() if n}
+        want = {"row_stats": 1, "graph_stats": 1, "vnge_q": 3}
+        print(f"  DTensor step + probes: {step_s:.2f} s, loss "
+              f"{float(dloss.full_tensor()):.6f}, probe entropy mean "
+              f"{float(dprobe['entropy'].mean()):.6f} over "
+              f"{dprobe['entropy'].numel()} heads (B x padded heads), "
+              f"routing JS {dprobe['jsdist']:.6g}; launches {launched}, "
+              f"gathers {gathered}; the step's peak above what it holds "
+              f"{dprobe['step_peak'] / 2**30:.3f} GiB")
+        if launched != want or gathered != {"attention_probe": 2,
+                                            "routing_graph": 2}:
+            raise AssertionError(f"phase 13 launches {launched}, gathers "
+                                 f"{gathered}; want {want}")
+        # gate 1: the same padded model on plain tensors
+        zero_counts()
+        pparams, ploss, pprobe, plogits = sharded_run(
+            torch, cfg, rules, mesh, map_tree(lambda a: a.clone(), plain),
+            batch, dev, probes=True)
+        errs = {
+            "loss": diff(torch, dloss, ploss),
+            "params": max(diff(torch, a, pparams_f) for a, pparams_f in zip(
+                flatten_names(dparams).values(),
+                flatten_names(pparams).values())),
+            "entropy": diff(torch, dprobe["entropy"], pprobe["entropy"]),
+            "jsdist": abs(dprobe["jsdist"] - pprobe["jsdist"]),
+            "logits": diff(torch, dlogits, plogits)}
+        worst = max(errs.values())
+        print(f"  DTensor vs plain tensors (same padded model): "
+              f"{gate('granite DTensor vs plain', worst, 1e-5)}; "
+              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+        del pparams, plogits, dlogits, plain
+        # gate 2: the unpadded model on zero-padded weights. The top-8
+        # routing is a discrete choice: matmuls of 32 and 24 heads, 48
+        # and 40 experts round apart in the last bit and flip near-tied
+        # choices, so the gated pair routes every token to every real
+        # expert with a capacity that drops none (the padded capacity
+        # divides by 48, the unpadded by 40); the top-8 model's gap is
+        # printed beside it
+        pb = {"plain": batch, "dt": dbatch}
+        # a capacity of every token: cf·T·k/E_pad = T
+        top8 = padded_vs_unpadded(
+            torch, dataclasses.replace(cfg, capacity_factor=e_pad
+                                       / cfg.top_k),
+            rules, mesh, dparams, pb, dev)
+        smooth = dataclasses.replace(cfg, top_k=cfg.n_experts,
+                                     capacity_factor=e_pad / cfg.n_experts)
+        d_log, d_ce, aux_p, aux_u, scale, smooth_params = \
+            padded_vs_unpadded(torch, smooth, rules, mesh, dparams, pb, dev)
+        raw = padded_vs_unpadded(torch, smooth, rules, mesh, dparams, pb,
+                                 dev, rescale=False)
+        ratio = aux_p / aux_u
+        print(f"  padded vs unpadded on zero-padded weights (layer "
+              f"weights at 1/sqrt(fan-in)), every token to every real "
+              f"expert, no drops: logits "
+              f"{gate('granite padded logits', d_log, 1e-4, scale)} "
+              f"(max |logit| {scale:.3g}), cross entropy "
+              f"{gate('granite padded CE', d_ce, 1e-5)} relative; aux "
+              f"{aux_p:.6f} vs {aux_u:.6f}, ratio {ratio:.6f} (E_pad/E = "
+              f"{e_pad / cfg.n_experts:.6f} if every token's top "
+              f"{cfg.n_experts} are the real experts); at top-8 "
+              f"(printed): logits {top8[0]:.3e}, cross entropy "
+              f"{top8[1]:.3e} relative; at the init's 1/sqrt(L) scale "
+              f"(printed): logits {raw[0]:.3e} of {raw[4]:.3g}, cross "
+              f"entropy {raw[1]:.3e} relative")
+        del raw, top8
+        err = decode_vs_prefill(torch, smooth, rules, mesh, smooth_params,
+                                dbatch["tokens"], dev)
+        del smooth_params
+        print(f"  decode over an f32 cache vs prefill, {SHARD_DECODE} "
+              f"tokens (the padded DTensor model routing to every real "
+              f"expert, weights at 1/sqrt(fan-in)): "
+              f"{gate('granite decode', err, 1e-4)}")
+        del dparams, dbatch, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        for name, b, s in SHARD_MODELS:
+            sharded_family(torch, name, b, s, mesh, rules, dev, args)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f"  (rules on the 1x1 mesh took "
+          f"{time.perf_counter() - t_phase:.1f} s)")
+
+    # the memory model's cross-check: phase 13's cell on a 1×1 fake mesh
+    t0 = time.perf_counter()
+    cell = dry_cross_check(args)
+    dry_bytes = cell["mem_param_bytes"] + cell["mem_opt_bytes"] \
+        + cell["mem_step_bytes"]
+    card = held["params"][0] + held["opt"][0]
+    asked = held["params"][1] + held["opt"][1]
+    step_peak = dprobe["step_peak"]
+    print(f"  dry run of this cell on a 1x1 fake mesh "
+          f"({time.perf_counter() - t0:.1f} s): parameters "
+          f"{cell['mem_param_bytes']} B + moments {cell['mem_opt_bytes']} "
+          f"B + step {cell['mem_step_bytes']} B = {dry_bytes} B; the "
+          f"card's allocator: requested {held['params'][1]} B + "
+          f"{held['opt'][1]} B = {asked} B, torch.cuda.memory_allocated "
+          f"{held['params'][0]} B + {held['opt'][0]} B (whole blocks: the "
+          f"step's 4 B take 512); dry-run peak {cell['mem_peak_gb']:.3f} "
+          f"GiB (temporaries {cell['mem_temp_gb']:.3f} GiB) vs the card's "
+          f"state {card / 2**30:.3f} GiB + the step's peak above it "
+          f"{step_peak / 2**30:.3f} GiB = "
+          f"{(card + step_peak) / 2**30:.3f} GiB "
+          "(torch.cuda.max_memory_allocated)")
+    if dry_bytes != asked:
+        raise AssertionError(f"dry-run argument bytes {dry_bytes}: the "
+                             f"card's allocator requested {asked} B and "
+                             f"allocated {card} B")
+
+
+def sharded_family(torch, name, b, s, mesh, rules, dev, args):
+    """mamba2-130m and whisper-small whole under the rules: DTensor vs
+    plain (one step and the prefill), padded vs unpadded on zero-padded
+    weights (gated for whisper; printed for mamba2, whose gated RMSNorm
+    spans the padded width)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.sharding import named_sharding
+    from repro_torch.models.api import model_param_defs
+    from repro_torch.models.attention import attn_dims
+    from repro_torch.models.mamba2 import ssm_dims
+    from repro_torch.models.params import (distribute_params, flatten_names,
+                                           init_params, map_tree,
+                                           param_shardings)
+
+    cfg = get_config(name)
+    defs = model_param_defs(cfg, rules)
+    if cfg.is_encoder_decoder:
+        pads = f"heads {cfg.n_heads} -> {attn_dims(cfg, rules).n_q}"
+    else:
+        pads = f"SSM heads {ssm_dims(cfg)[0]} -> {ssm_dims(cfg, rules)[0]}"
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    plain = init_params(defs, gen, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    axes = {"tokens": ("batch", None), "labels": ("batch", None)}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = 0.02 * torch.randn(
+            (b, cfg.encoder_seq, cfg.d_model), generator=gen, device=dev)
+        axes["frames"] = ("batch", None, None)
+    dbatch = {k: distribute_tensor(x, mesh, list(named_sharding(
+        mesh, rules, axes[k]).placements)) for k, x in batch.items()}
+    dparams = distribute_params(map_tree(lambda a: a.clone(), plain),
+                                param_shardings(defs, mesh, rules))
+    zero_counts()
+    t0 = time.perf_counter()
+    dparams, dloss, _, dlogits = sharded_run(torch, cfg, rules, mesh,
+                                             dparams, dbatch, dev, False)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launched = {k: n for k, n in read_launches().items() if n}
+    pparams, ploss, _, plogits = sharded_run(torch, cfg, rules, mesh, plain,
+                                             batch, dev, False)
+    errs = {"loss": diff(torch, dloss, ploss),
+            "params": max(diff(torch, a, c) for a, c in zip(
+                flatten_names(dparams).values(),
+                flatten_names(pparams).values())),
+            "logits": diff(torch, dlogits, plogits)}
+    print(f"  {name} (whole, {pads}; batch {b} x {s}): DTensor step "
+          f"{took:.2f} s, loss {float(ploss):.6f}, launches "
+          f"{launched or '{}'}; DTensor vs plain "
+          f"{gate(name + ' DTensor vs plain', max(errs.values()), 1e-5)}")
+    if launched:
+        raise AssertionError(f"{name}: the step launched {launched}")
+    d_log, d_ce, _, _, scale, _ = padded_vs_unpadded(
+        torch, cfg, rules, mesh, dparams, {"plain": batch, "dt": dbatch},
+        dev)
+    if cfg.is_encoder_decoder:
+        print(f"  {name} padded vs unpadded on zero-padded weights: logits "
+              f"{gate(name + ' padded logits', d_log, 1e-4, scale)}, "
+              f"cross entropy {gate(name + ' padded CE', d_ce, 1e-5)} "
+              "relative")
+    else:
+        print(f"  {name} padded vs unpadded on zero-padded weights: not "
+              f"equal by construction (the gated RMSNorm averages over "
+              f"the padded inner width): max |logit diff| {d_log:.3e}, "
+              f"cross entropy {d_ce:.3e} relative")
+
+
+def read_launches() -> dict:
+    """The wrappers' launch counts since `zero_counts`, not added to the
+    kernels line (a path none of whose kernels may launch)."""
+    from repro_torch.analysis.sanitize import launch_counts
+
+    return launch_counts()
+
+
+def dry_cross_check(args) -> dict:
+    """`dryrun_cell` of phase 13's granite cell (f32 parameters, as the
+    card holds them) on a 1×1 fake mesh, in a process of its own."""
+    code = (
+        "import dataclasses, json, torch\n"
+        "from repro_torch.configs.base import ShapeConfig, get_config\n"
+        "from repro_torch.launch.dryrun import dryrun_cell\n"
+        f"cfg = dataclasses.replace(get_config({TRAIN_ARCH!r}), "
+        f"n_layers={TRAIN_LAYERS})\n"
+        f"r = dryrun_cell({TRAIN_ARCH!r}, 'phase13', cfg=cfg, "
+        f"shape=ShapeConfig('phase13', {SHARD_SEQ}, {SHARD_BATCH}, "
+        f"'train'), mesh_shape=(1, 1), tp={SHARD_TP}, "
+        "param_dtype=torch.float32, verbose=False)\n"
+        "print(json.dumps(r))\n")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    run = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=600)
+    if run.returncode:
+        raise AssertionError(f"dry-run cross-check failed:\n"
+                             f"{run.stderr[-3000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def dryrun_rows(rows, rc, waited) -> None:
+    """Print the dry run's cells and hold them to the gate: every cell
+    OK or SKIP, the SKIP set the reference's ``skip_reason`` set."""
+    from repro_torch.configs.archs import ARCH_IDS
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.launch.dryrun import skip_reason
+
+    print(f"  dry run (its own process, {DRY_JOBS} cells at a time, "
+          f"started with phase 13; waited {waited:.1f} s here): "
+          f"{len(rows)} cells, exit code {rc}; per device: FLOPs, bytes, "
+          "collective bytes, peak GiB, bottleneck, fits 80 GB "
+          "(estimates against datasheet peaks)")
+    for r in rows:
+        if r["status"] == "OK":
+            print(f"    {r['arch']:26} {r['shape']:12} {r['mesh']:8} OK  "
+                  f"{r['device_flops']:.4g} {r['device_bytes']:.4g} "
+                  f"{r['collective_total']:.4g} {r['mem_peak_gb']:.3f} "
+                  f"{r['bottleneck']} {r['fits_hbm']} ({r['count_s']} s)")
+        else:
+            print(f"    {r['arch']:26} {r['shape']:12} {r['mesh']:8} "
+                  f"{r['status']} {r.get('reason', r.get('error'))}")
+    want = {(a, s, m) for a in ARCH_IDS for s, shape in SHAPES.items()
+            for m in ("16x16", "2x16x16")
+            if skip_reason(get_config(a), shape)}
+    skips = {(r["arch"], r["shape"], r["mesh"]) for r in rows
+             if r["status"] == "SKIP"}
+    fails = [r for r in rows if r["status"] not in ("OK", "SKIP")]
+    if rc or fails or len(rows) != 2 * len(ARCH_IDS) * len(SHAPES) \
+            or skips != want:
+        raise AssertionError(f"dry run: exit {rc}, {len(fails)} FAIL, "
+                             f"{len(rows)} cells, skips {sorted(skips)}")
+
+
 def print_row(r: dict) -> None:
     """One kernel's row of the kernels line, for a reader."""
     floor = f", one empty launch {r['empty_launch_ms']:.4f} ms" \
@@ -4322,6 +4941,9 @@ def main() -> int:
         start("analysis", "phase 12 the analysis gate (lint, tick audit, "
                           "smem, sentinel):")
         phase_analysis(args, torch, out, dev)
+        start("sharding", "phase 13 the model-sharding rules on a 1x1 "
+                          "NCCL mesh and the meta-device dry run:")
+        phase_sharding(args, torch, out, dev)
         for r in rows:  # rows built before a later path count it too
             r["launches"] = out["launches"][r["name"]]
         start("done", "")

@@ -1,9 +1,9 @@
 """Model configuration dataclass and the architecture registry.
 
 The port's own copy of `repro.configs.base` (the ten published
-configurations are plain hyperparameters, copied exactly). The
-reference's `ShapeConfig` cells belong to its TPU dry-run and are not
-copied.
+configurations are plain hyperparameters, copied exactly), with the
+reference's four input-shape cells (`ShapeConfig`, `SHAPES`) that the
+dry run (`launch.dryrun`) lowers every architecture against.
 """
 from __future__ import annotations
 
@@ -151,6 +151,23 @@ class ModelConfig:
             n_frontend_tokens=8 if self.frontend == "vision_stub" else 0,
         )
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell of the assignment matrix."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 _REGISTRY = {}
 

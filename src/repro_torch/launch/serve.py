@@ -21,6 +21,7 @@ import time
 import torch
 
 from repro_torch.configs.base import get_config
+from repro_torch.distributed.sharding import NO_SHARDING, ShardingRules
 from repro_torch.kernels.dispatch import Device, resolve_device
 from repro_torch.models.api import init_cache_arrays, model_param_defs
 from repro_torch.models.params import init_params
@@ -31,11 +32,13 @@ CACHE_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 def serve_batch(cfg, params, prompts: torch.Tensor, max_new: int,
                 cache_len: int, device: Device = None,
-                cache_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                cache_dtype: torch.dtype = torch.bfloat16,
+                rules: ShardingRules = NO_SHARDING) -> torch.Tensor:
     """Greedy-decode ``max_new`` tokens for a batch of equal-length
     prompts (B, P) → (B, P + max_new) int32 on ``device`` (``None`` is
     CUDA); the cache holds ``cache_len`` positions in ``cache_dtype``
-    (the reference's bf16 by default)."""
+    (the reference's bf16 by default). ``rules`` are the parameters'
+    `ShardingRules` (their padded shapes); the cache is plain."""
     device = resolve_device(device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -43,8 +46,9 @@ def serve_batch(cfg, params, prompts: torch.Tensor, max_new: int,
             = False
     prompts = prompts.to(device=device, dtype=torch.int32)
     b, prompt_len = prompts.shape
-    serve = build_serve_step(cfg)
-    cache = init_cache_arrays(cfg, b, cache_len, device, cache_dtype)
+    serve = build_serve_step(cfg, rules=rules)
+    cache = init_cache_arrays(cfg, b, cache_len, device, cache_dtype,
+                              rules)
     tok = prompts[:, :1]
     out = [tok]
     for t in range(prompt_len + max_new - 1):

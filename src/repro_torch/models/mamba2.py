@@ -1,9 +1,13 @@
 """Mamba-2 (SSD — state-space duality) mixer, chunked-parallel form.
 
-The port's copy of `repro.models.mamba2` for one device (no head
-padding: the reference pads SSD heads only to a tensor-parallel degree
-above 1). The selective state space recurrence per head h (head dim p,
-state n):
+The port's copy of `repro.models.mamba2`. Under a `ShardingRules` with
+a tensor-parallel degree above 1 the SSD heads are padded to a multiple
+of it (`ssm_dims`; the inner width with them), as the reference pads
+them, and the projections are `constrain`-ed to the "d_inner" axis
+where the reference constrains them. Padding is not numerically
+invisible here, in the reference as in the port: the gated RMSNorm
+spans the padded inner width. The selective state space recurrence per
+head h (head dim p, state n):
 
   S_t = exp(-exp(A_log)·dt_t) · S_{t-1} + dt_t · (B_t ⊗ x_t)
   y_t = C_t · S_t + D · x_t
@@ -21,24 +25,35 @@ x above 20).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import rms_norm
+from repro_torch.distributed.sharding import (NO_SHARDING, ShardingRules,
+                                              constrain, pad_to_multiple)
+from repro_torch.models.layers import matmul, rms_norm
 from repro_torch.models.params import PDef, TensorSpec
 
 
-def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
-    """(n_heads, head_dim, d_state)."""
-    return cfg.d_inner // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state
+def ssm_dims(cfg: ModelConfig, rules: ShardingRules = NO_SHARDING
+             ) -> Tuple[int, int, int]:
+    """(n_heads_eff, head_dim, d_state)."""
+    h = cfg.d_inner // cfg.ssm_head_dim
+    tp = rules.tp_size if rules and rules.tensor else 1
+    if tp > 1 and h % tp != 0:
+        h = pad_to_multiple(h, tp)
+    return h, cfg.ssm_head_dim, cfg.ssm_state
 
 
-def ssm_param_defs(cfg: ModelConfig, n_layers: int):
+def ssm_param_defs(cfg: ModelConfig, n_layers: int,
+                   rules: ShardingRules = NO_SHARDING):
     d = cfg.d_model
-    h, p_dim, n = ssm_dims(cfg)
+    h, p_dim, n = ssm_dims(cfg, rules)
     di = h * p_dim
     L = n_layers
     conv_ch = di + 2 * n
@@ -86,24 +101,42 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 
 def ssd_mixer(p, x: torch.Tensor, cfg: ModelConfig,
+              rules: ShardingRules = NO_SHARDING,
               chunk: int = 128) -> torch.Tensor:
     """Full-sequence (train/prefill) SSD pass: x (B, S, D) → (B, S, D)."""
-    bsz, s, _ = x.shape
-    h, pd, n = ssm_dims(cfg)
-    di = h * pd
+    s = x.shape[1]
+    h, pd, n = ssm_dims(cfg, rules)
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"ssd_mixer: S={s} is not a multiple of the "
                          f"chunk {chunk}")
-    nc = s // chunk
+    zxbcdt = constrain(matmul(x, p["in_proj"]), rules,
+                       ("batch", None, "d_inner"))
+    args = (p["conv_w"], p["conv_b"], p["dt_bias"], p["a_log"],
+            p["d_skip"])
+    if isinstance(zxbcdt, DTensor):
+        g = _sharded_ssd(zxbcdt, args, h, pd, n, chunk, rules)
+    else:
+        g = _ssd_gated(zxbcdt, *args, h, pd, n, chunk)
+    y = rms_norm(g, p["norm"], cfg.norm_eps)
+    y = constrain(y, rules, ("batch", None, "d_inner"))
+    return matmul(y.to(x.dtype), p["out_proj"])
 
-    zxbcdt = x @ p["in_proj"]
+
+def _ssd_gated(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, h: int,
+               pd: int, n: int, chunk: int) -> torch.Tensor:
+    """The SSD of ``h`` heads from their in-projection (B, S, 2·di + 2n
+    + h) → the gated output y·silu(z) (B, S, di), f32, before the
+    norm."""
+    bsz, s, _ = zxbcdt.shape
+    di = h * pd
+    nc = s // chunk
     z, xs, b, c, dt = _split_proj(zxbcdt, di, n, h)
-    xbc = _causal_conv(torch.cat([xs, b, c], -1), p["conv_w"], p["conv_b"])
+    xbc = _causal_conv(torch.cat([xs, b, c], -1), conv_w, conv_b)
     xs, b, c = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
 
-    dt = _softplus(dt.float() + p["dt_bias"])  # (B, S, h)
-    a = -torch.exp(p["a_log"].float())  # (h,) negative
+    dt = _softplus(dt.float() + dt_bias)  # (B, S, h)
+    a = -torch.exp(a_log.float())  # (h,) negative
     log_da = dt * a  # (B, S, h) log decay ≤ 0
     xh = xs.reshape(bsz, s, h, pd).float()
     dtx = xh * dt[..., None]  # dt-scaled input
@@ -119,7 +152,7 @@ def ssd_mixer(p, x: torch.Tensor, cfg: ModelConfig,
     scores = cc_ @ bc_.transpose(-1, -2)  # (B, nc, q, k)
     decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,q,k,h)
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                   device=x.device))
+                                   device=zxbcdt.device))
     # clamp BEFORE exp: masked (future) pairs have decay > 0 and would
     # overflow; where(mask, inf, 0) back-propagates 0·inf = NaN
     decay = torch.where(causal[:, :, None], decay, -1e30)
@@ -135,7 +168,7 @@ def ssd_mixer(p, x: torch.Tensor, cfg: ModelConfig,
     # inter-chunk recurrence over the summaries: the state entering
     # each chunk
     s_prev = torch.zeros((bsz, h, n, pd), dtype=torch.float32,
-                         device=x.device)
+                         device=zxbcdt.device)
     s_prevs = []
     for m in range(nc):
         s_prevs.append(s_prev)
@@ -149,20 +182,74 @@ def ssd_mixer(p, x: torch.Tensor, cfg: ModelConfig,
         * torch.exp(cum)[..., None]
 
     y = (y_intra + y_inter).reshape(bsz, s, h, pd)
-    y = y + xh * p["d_skip"][None, None, :, None]
-    y = y.reshape(bsz, s, di)
-    y = rms_norm(y * F.silu(z.float()), p["norm"], cfg.norm_eps)
-    return y.to(x.dtype) @ p["out_proj"]
+    y = y + xh * d_skip[None, None, :, None]
+    return y.reshape(bsz, s, di) * F.silu(z.float())
 
 
-def ssd_decode_step(p, x: torch.Tensor, state: SsmState, cfg: ModelConfig
+def _sharded_ssd(zxbcdt, args, h: int, pd: int, n: int, chunk: int,
+                 rules: ShardingRules):
+    """`_ssd_gated` on DTensors under `local_map`: the in-projection
+    gathered whole over the model axis (its (z, x, B, C, dt) segments
+    do not align with an even split of its last axis), each rank
+    running the SSD of its own heads (B and C shared) on its batch
+    rows; the output splits its channels by head. The norm after it
+    reduces across the split."""
+    mesh = zxbcdt.device_mesh
+    entry = rules.spec_for(("d_inner",))[0]
+    names = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    heads = [mesh.mesh_dim_names.index(a) for a in names
+             if a in mesh.mesh_dim_names]
+    split = math.prod(mesh.size(i) for i in heads)
+    if h % split:
+        heads, split = [], 1
+    batch = [isinstance(pl, Shard) and pl.dim == 0
+             for pl in zxbcdt.placements]
+    coord, idx = mesh.get_coordinate(), 0
+    for i in heads:
+        idx = idx * mesh.size(i) + coord[i]
+    hl = h // split
+    lo, di = idx * hl, h * pd
+
+    def local(zx, cw, cb, dtb, al, ds):
+        if split == 1:
+            return _ssd_gated(zx, cw, cb, dtb, al, ds, h, pd, n, chunk)
+        ch = slice(lo * pd, (lo + hl) * pd)
+        bc = slice(2 * di, 2 * di + 2 * n)
+        zx_l = torch.cat([zx[..., ch], zx[..., di + ch.start:di + ch.stop],
+                          zx[..., bc], zx[..., 2 * di + 2 * n + lo:
+                                          2 * di + 2 * n + lo + hl]], -1)
+        conv = slice(di, di + 2 * n)
+        cw_l = torch.cat([cw[:, ch], cw[:, conv]], -1)
+        cb_l = torch.cat([cb[ch], cb[conv]], -1)
+        heads_l = slice(lo, lo + hl)
+        return _ssd_gated(zx_l, cw_l, cb_l, dtb[heads_l], al[heads_l],
+                          ds[heads_l], hl, pd, n, chunk)
+
+    rep = [Replicate()] * mesh.ndim
+    x_in = [Shard(0) if b else Replicate() for b in batch]
+    out = [Shard(0) if b else Shard(2) if i in heads else Replicate()
+           for i, b in enumerate(batch)]
+    x_grad = [Shard(0) if b else Partial() if i in heads else Replicate()
+              for i, b in enumerate(batch)]
+    p_grad = [Partial() if b or i in heads else Replicate()
+              for i, b in enumerate(batch)]
+    fn = local_map(local, out_placements=out,
+                   in_placements=(x_in,) + (rep,) * 5,
+                   in_grad_placements=(x_grad,) + (p_grad,) * 5,
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(zxbcdt, *args)
+
+
+def ssd_decode_step(p, x: torch.Tensor, state: SsmState, cfg: ModelConfig,
+                    rules: ShardingRules = NO_SHARDING
                     ) -> Tuple[torch.Tensor, SsmState]:
     """O(1) recurrent decode step: x (B, 1, D) → (out (B, 1, D), the
     new `SsmState`)."""
     bsz = x.shape[0]
-    h, pd, n = ssm_dims(cfg)
+    h, pd, n = ssm_dims(cfg, rules)
     di = h * pd
-    zxbcdt = (x @ p["in_proj"])[:, 0]
+    zxbcdt = matmul(x, p["in_proj"])[:, 0]
     z, xs, b, c, dt = _split_proj(zxbcdt, di, n, h)
     xbc = torch.cat([xs, b, c], -1)[:, None, :]  # (B, 1, C)
     conv_in = torch.cat([state.conv, xbc.to(state.conv.dtype)], dim=1)
@@ -181,15 +268,16 @@ def ssd_decode_step(p, x: torch.Tensor, state: SsmState, cfg: ModelConfig
     y = y + xh * p["d_skip"][None, :, None]
     y = y.reshape(bsz, di)
     y = rms_norm(y * F.silu(z.float()), p["norm"], cfg.norm_eps)
-    out = (y.to(x.dtype) @ p["out_proj"])[:, None]
+    out = matmul(y.to(x.dtype), p["out_proj"])[:, None]
     return out, SsmState(s=s_new, conv=conv_in[:, 1:, :])
 
 
 def ssm_state_structs(cfg: ModelConfig, batch: int,
-                      dtype: torch.dtype = torch.float32) -> SsmState:
+                      dtype: torch.dtype = torch.float32,
+                      rules: ShardingRules = NO_SHARDING) -> SsmState:
     """The decode state's shapes and dtypes (the recurrent state is
     always f32; ``dtype`` is the conv tail's)."""
-    h, pd, n = ssm_dims(cfg)
+    h, pd, n = ssm_dims(cfg, rules)
     di = h * pd
     return SsmState(
         s=TensorSpec((batch, h, n, pd), torch.float32),
@@ -198,6 +286,13 @@ def ssm_state_structs(cfg: ModelConfig, batch: int,
 
 def init_ssm_state(cfg: ModelConfig, batch: int,
                    dtype: torch.dtype = torch.float32,
-                   device=None) -> SsmState:
-    st = ssm_state_structs(cfg, batch, dtype)
+                   device=None, rules: ShardingRules = NO_SHARDING
+                   ) -> SsmState:
+    st = ssm_state_structs(cfg, batch, dtype, rules)
     return SsmState(s=st.s.zeros(device), conv=st.conv.zeros(device))
+
+
+def ssm_state_axes() -> SsmState:
+    """The decode state's logical axes."""
+    return SsmState(s=("batch", "d_inner", None, None),
+                    conv=("batch", None, "d_inner"))

@@ -2,9 +2,13 @@
 
 The port's copy of `repro.models.params`. A `PDef` holds a parameter's
 shape, logical axes and init recipe; `init_params` materializes a
-nested dict of tensors from a tree of them. The reference's sharding
-views of the same tree (`param_structs`, `param_shardings`,
-`param_specs`) belong to its TPU mesh and are not copied.
+nested dict of tensors from a tree of them. The same tree gives the
+three sharding views of the reference: `param_structs` (`TensorSpec`s,
+no allocation), `param_specs` (each leaf's spec under a
+`ShardingRules`) and `param_shardings` (its DTensor placements on a
+`DeviceMesh`); `distribute_params` lays a tree of tensors out by those
+placements, leaf by leaf, as the reference's ``jax.device_put(params,
+shardings)`` does.
 
 Parameters are nested dicts of tensors with the reference's keys, so a
 leaf's name — its dict keys joined by ``/``, e.g. ``blocks/L0/attn/wq``
@@ -21,6 +25,7 @@ import math
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import distribute_tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +114,37 @@ def init_params(defs, generator: torch.Generator, device=None):
             leaves[name] = torch.randn(d.shape, generator=generator,
                                        device=device) * scale
     return unflatten_names(leaves)
+
+
+def param_structs(defs, dtype: torch.dtype = torch.bfloat16):
+    """The tree of `TensorSpec`s of ``defs`` in ``dtype``."""
+    return map_tree(lambda d: TensorSpec(tuple(d.shape), dtype), defs)
+
+
+def param_specs(defs, rules):
+    """Each leaf's spec (a tuple, one entry a dimension) under
+    ``rules``."""
+    return map_tree(lambda d: rules.spec_for(d.axes), defs)
+
+
+def param_shardings(defs, mesh, rules):
+    """Each leaf's `NamedSharding` (placements) on ``mesh``."""
+    from repro_torch.distributed.sharding import named_sharding
+
+    return map_tree(lambda d: named_sharding(mesh, rules, d.axes), defs)
+
+
+def distribute_params(params, shardings):
+    """``distribute_tensor`` of every leaf of ``params`` by the matching
+    `NamedSharding` of ``shardings`` (a tree of the same keys). Every
+    rank holds the whole tree (drawn from one seed, or loaded) and cuts
+    its own shard: no collective, as ``jax.device_put`` of host arrays
+    runs none."""
+    flat_s = flatten_names(shardings)
+    return unflatten_names({
+        k: distribute_tensor(v, flat_s[k].mesh, list(flat_s[k].placements),
+                             src_data_rank=None)
+        for k, v in flatten_names(params).items()})
 
 
 def count_params(defs) -> int:

@@ -13,6 +13,11 @@ Two decode quirks of the reference are kept (ROADMAP Queue 3):
 fills the cross-attention KV from the encoder, so a cache from
 `cache_spec` serves with zero cross-KV (`launch.serve.serve_batch`
 does so, as the reference's does).
+
+Every function takes the reference's `ShardingRules` as the keyword
+``rules`` (default `NO_SHARDING`): heads pad to the tensor-parallel
+degree (whisper-small: 12 → 16 at TP 16), the vocabulary to lcm(128,
+TP), and the reference's `constrain` calls act on DTensors.
 """
 from __future__ import annotations
 
@@ -21,16 +26,21 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (NO_SHARDING, ShardingRules,
+                                              constrain, padded_vocab)
 from repro_torch.models.attention import (KVCache, attn_dims,
                                           attn_param_defs, decode_attention,
                                           expand_kv, flash_attention,
-                                          qkv_project)
-from repro_torch.models.layers import cross_entropy_loss, layer_norm, unembed
+                                          head_projection, out_projection,
+                                          qkv_project, whole_heads)
+from repro_torch.models.layers import (cross_entropy_loss, layer_norm,
+                                       lookup, matmul, unembed)
 from repro_torch.models.params import PDef, TensorSpec, map_tree
-from repro_torch.models.transformer import padded_vocab
+from repro_torch.models.transformer import unstacked
 
 N_POS_DEC = 448  # Whisper's learned decoder positions
 
@@ -52,17 +62,18 @@ def _mlp_defs(n: int, cfg: ModelConfig):
     }
 
 
-def param_defs(cfg: ModelConfig) -> Dict:
+def param_defs(cfg: ModelConfig,
+               rules: ShardingRules = NO_SHARDING) -> Dict:
     d = cfg.d_model
     ne, nd = cfg.n_encoder_layers, cfg.n_layers
     return {
-        "embed": PDef((padded_vocab(cfg.vocab_size), d),
+        "embed": PDef((padded_vocab(cfg.vocab_size, rules), d),
                       ("vocab", "embed"), scale=0.02),
         "pos_dec": PDef((N_POS_DEC, d), (None, "embed"), scale=0.02),
         "pos_enc": PDef((cfg.encoder_seq, d), (None, "embed"), scale=0.02),
         "enc": {
             "ln1": _ln_defs(ne, d),
-            "attn": attn_param_defs(cfg, ne),
+            "attn": attn_param_defs(cfg, ne, rules),
             "ln2": _ln_defs(ne, d),
             "mlp": _mlp_defs(ne, cfg),
         },
@@ -70,9 +81,9 @@ def param_defs(cfg: ModelConfig) -> Dict:
                          "bias": PDef((d,), ("embed",), init="zeros")},
         "dec": {
             "ln1": _ln_defs(nd, d),
-            "self_attn": attn_param_defs(cfg, nd),
+            "self_attn": attn_param_defs(cfg, nd, rules),
             "ln_x": _ln_defs(nd, d),
-            "cross_attn": attn_param_defs(cfg, nd),
+            "cross_attn": attn_param_defs(cfg, nd, rules),
             "ln2": _ln_defs(nd, d),
             "mlp": _mlp_defs(nd, cfg),
         },
@@ -97,8 +108,8 @@ def _dec_positions(params, s: int, d: int) -> torch.Tensor:
 
 
 def _mlp(p, x):
-    h = F.gelu(x @ p["w1"] + p["b1"], approximate="tanh")
-    return h @ p["w2"] + p["b2"]
+    h = F.gelu(matmul(x, p["w1"]) + p["b1"], approximate="tanh")
+    return matmul(h, p["w2"]) + p["b2"]
 
 
 def _chunk_of(s: int, target: int = 1024) -> int:
@@ -110,26 +121,28 @@ def _chunk_of(s: int, target: int = 1024) -> int:
     return c
 
 
-def _attn_full(p, x_q, x_kv, cfg: ModelConfig, causal: bool):
+def _attn_full(p, x_q, x_kv, cfg: ModelConfig, causal: bool,
+               rules: ShardingRules = NO_SHARDING):
     """(Cross-)attention sublayer on full sequences."""
     pos_q = torch.arange(x_q.shape[1], device=x_q.device)[None].expand(
         x_q.shape[:2])
-    q, _, _ = qkv_project(p, x_q, pos_q, cfg)
+    q, _, _ = qkv_project(p, x_q, pos_q, cfg, rules)
     pos_kv = torch.arange(x_kv.shape[1], device=x_kv.device)[None].expand(
         x_kv.shape[:2])
-    _, k, v = qkv_project(p, x_kv, pos_kv, cfg)
-    o = flash_attention(q, k, v, attn_dims(cfg), causal=causal,
+    _, k, v = qkv_project(p, x_kv, pos_kv, cfg, rules)
+    o = flash_attention(q, k, v, attn_dims(cfg, rules), causal=causal,
                         q_chunk=_chunk_of(x_q.shape[1]),
                         kv_chunk=_chunk_of(x_kv.shape[1]))
-    return torch.einsum("bshd,hdm->bsm", o, p["wo"])
+    return out_projection(o, p["wo"])
 
 
 def _layers(body, x, stacked):
     """Run ``body(x, layer_params)`` over the stacked layers, each under
     `checkpoint` while gradients are on (the reference's
     ``jax.checkpoint`` inside its scan)."""
+    layers = unstacked(stacked)
     for i in range(stacked["ln1"]["scale"].shape[0]):
-        lp = map_tree(lambda a: a[i], stacked)
+        lp = map_tree(lambda a: a[i], layers)
         if torch.is_grad_enabled():
             x = checkpoint(body, x, lp, use_reentrant=False)
         else:
@@ -137,13 +150,15 @@ def _layers(body, x, stacked):
     return x
 
 
-def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def encode(params, frames: torch.Tensor, cfg: ModelConfig,
+           rules: ShardingRules = NO_SHARDING) -> torch.Tensor:
     """frames: (B, T_enc, D) precomputed embeddings (stub frontend)."""
     x = frames + params["pos_enc"][None, : frames.shape[1]]
+    x = constrain(x, rules, ("batch", None, None))
 
     def body(x_, lp):
         h = layer_norm(x_, lp["ln1"]["scale"], lp["ln1"]["bias"])
-        x_ = x_ + _attn_full(lp["attn"], h, h, cfg, causal=False)
+        x_ = x_ + _attn_full(lp["attn"], h, h, cfg, False, rules)
         h = layer_norm(x_, lp["ln2"]["scale"], lp["ln2"]["bias"])
         return x_ + _mlp(lp["mlp"], h)
 
@@ -153,18 +168,20 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def decode_train(params, tokens: torch.Tensor, enc_out: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig,
+                 rules: ShardingRules = NO_SHARDING) -> torch.Tensor:
     """Teacher-forced decoder; returns logits (B, S, V_pad). Positions
     above 448 are sinusoids (`decode_step` clamps instead)."""
-    x = params["embed"][tokens.long()]
+    x = lookup(params["embed"], tokens)
     x = x + _dec_positions(params, tokens.shape[1], cfg.d_model)[None]
+    x = constrain(x, rules, ("batch", None, None))
 
     def body(x_, lp):
         h = layer_norm(x_, lp["ln1"]["scale"], lp["ln1"]["bias"])
-        x_ = x_ + _attn_full(lp["self_attn"], h, h, cfg, causal=True)
+        x_ = x_ + _attn_full(lp["self_attn"], h, h, cfg, True, rules)
         h = layer_norm(x_, lp["ln_x"]["scale"], lp["ln_x"]["bias"])
-        x_ = x_ + _attn_full(lp["cross_attn"], h, enc_out, cfg,
-                             causal=False)
+        x_ = x_ + _attn_full(lp["cross_attn"], h, enc_out, cfg, False,
+                             rules)
         h = layer_norm(x_, lp["ln2"]["scale"], lp["ln2"]["bias"])
         return x_ + _mlp(lp["mlp"], h)
 
@@ -183,29 +200,40 @@ def _masked_logits(params, x, cfg: ModelConfig):
     return logits
 
 
-def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
-    enc_out = encode(params, batch["frames"], cfg)
-    logits = decode_train(params, batch["tokens"], enc_out, cfg)
+def loss_fn(params, batch, cfg: ModelConfig,
+            rules: ShardingRules = NO_SHARDING) -> torch.Tensor:
+    enc_out = encode(params, batch["frames"], cfg, rules)
+    logits = decode_train(params, batch["tokens"], enc_out, cfg, rules)
     return cross_entropy_loss(logits, batch["labels"])
 
 
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
-               dtype: torch.dtype = torch.bfloat16) -> Dict:
+               dtype: torch.dtype = torch.bfloat16,
+               rules: ShardingRules = NO_SHARDING):
     """Self-attention KV cache (decoder) + the static cross KV over the
     encoder's frames, both stacked (L, ...) in ``dtype`` (the
     reference's: bf16)."""
     nd = cfg.n_layers
-    dims = attn_dims(cfg)
-    self_sd = TensorSpec((nd,) + KVCache.shape(cfg, batch, seq_len).shape,
-                         dtype)
+    dims = attn_dims(cfg, rules)
+    self_sd = TensorSpec(
+        (nd,) + KVCache.shape(cfg, batch, seq_len, rules=rules).shape,
+        dtype)
     cross_sd = TensorSpec(
         (nd, batch, dims.n_kv, cfg.encoder_seq, dims.head_dim), dtype)
     return {"self": KVCache(k=self_sd, v=self_sd),
             "cross": KVCache(k=cross_sd, v=cross_sd)}
 
 
+def cache_axes(cfg: ModelConfig, rules: ShardingRules = NO_SHARDING):
+    """The logical axes of `cache_spec`'s tree; the cross KV shards its
+    batch only (encoder_seq 1500 does not divide the TP degree)."""
+    la = ("layers",) + KVCache.logical_axes(cfg, rules)
+    cross = ("layers", "batch", None, None, None)
+    return {"self": KVCache(k=la, v=la), "cross": KVCache(k=cross, v=cross)}
+
+
 def decode_step(params, tokens: torch.Tensor, cache: Dict, pos: int,
-                cfg: ModelConfig):
+                cfg: ModelConfig, rules: ShardingRules = NO_SHARDING):
     """One decoder serve step against cached self/cross KV: tokens
     (B, 1) at ``pos`` (a host int) → (logits (B, 1, V_pad), cache).
 
@@ -214,24 +242,26 @@ def decode_step(params, tokens: torch.Tensor, cache: Dict, pos: int,
     self-attention KV is written in place; the cross KV is read as it
     is.
     """
-    x = params["embed"][tokens.long()]
+    x = lookup(params["embed"], tokens)
     table = params["pos_dec"]
     x = x + table[min(pos, table.shape[0] - 1)][None, None]
-    dims = attn_dims(cfg)
+    dims = attn_dims(cfg, rules)
     for i in range(cfg.n_layers):
         lp = map_tree(lambda a: a[i], params["dec"])
         self_c = map_tree(lambda a: a[i], cache["self"])
         cross = map_tree(lambda a: a[i], cache["cross"])
         h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"])
-        h_sa, _ = decode_attention(lp["self_attn"], h, self_c, pos, cfg)
+        h_sa, _ = decode_attention(lp["self_attn"], h, self_c, pos, cfg,
+                                   rules)
         x = x + h_sa
         h = layer_norm(x, lp["ln_x"]["scale"], lp["ln_x"]["bias"])
         # cross-attention against the static encoder KV, every kv head
         # expanded to its q heads
         ca = lp["cross_attn"]
-        q = torch.einsum("bsd,dhk->bshk", h, ca["wq"])
+        q = head_projection(h, ca["wq"])
         if cfg.qkv_bias:
             q = q + ca["bq"]
+        q = whole_heads(q.float())  # JAX promotes it to meet the f32 keys
         k_full = expand_kv(cross.k.float().transpose(1, 2),
                            dims).transpose(1, 2)  # (B, Hq, S_enc, D)
         v_full = expand_kv(cross.v.transpose(1, 2), dims).transpose(1, 2)
@@ -239,8 +269,11 @@ def decode_step(params, tokens: torch.Tensor, cache: Dict, pos: int,
             dims.head_dim)
         probs = torch.softmax(scores, dim=-1)
         o = torch.einsum("bhk,bhkd->bhd", probs.to(v_full.dtype), v_full)
-        x = x + torch.einsum("bhd,hdm->bm", o.to(ca["wo"].dtype),
-                             ca["wo"])[:, None]
+        if isinstance(o, DTensor):
+            x = x + out_projection(o[:, None].to(ca["wo"].dtype), ca["wo"])
+        else:
+            x = x + torch.einsum("bhd,hdm->bm", o.to(ca["wo"].dtype),
+                                 ca["wo"])[:, None]
         h = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"])
         x = x + _mlp(lp["mlp"], h)
     x = layer_norm(x, params["dec_final_ln"]["scale"],

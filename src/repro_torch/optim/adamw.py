@@ -56,9 +56,9 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 def init_state(params) -> AdamWState:
     leaves = list(flatten_names(params).values())
     device = leaves[0].device if leaves else None
+    # zeros_like keeps a DTensor parameter's placements
     zeros = lambda: map_tree(  # noqa: E731
-        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-        params)
+        lambda p: torch.zeros_like(p, dtype=torch.float32), params)
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                       mu=zeros(), nu=zeros())
 

@@ -1,10 +1,14 @@
 """The train and serve step builders.
 
-The port's copy of `repro.train.step` for one device.
-A step takes the loss and its gradients with `torch.autograd.grad` on
-detached views of the parameters (no copy), then applies the AdamW
-update in place (`optim/adamw.py`). With ``n_microbatches`` > 1 the
-batch is split along its leading axis and the gradients accumulate in
+The port's copy of `repro.train.step`. Both builders take the
+reference's `ShardingRules` as the keyword ``rules`` (default
+`NO_SHARDING`); on DTensor parameters (laid out by
+`models.params.param_shardings`) the loss and its backward run under
+DTensor's implicit replication. A step takes the loss and its
+gradients with `torch.autograd.grad` on detached views of the
+parameters (no copy), then applies the AdamW update in place
+(`optim/adamw.py`). With ``n_microbatches`` > 1 the batch is split
+along its leading axis and the gradients accumulate in
 ``acc_dtype`` over a loop, as the reference's ``lax.scan`` does, then
 scale by 1/m; the loss is the mean of the microbatch losses.
 
@@ -21,10 +25,12 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.compression import compress_with_feedback
-from repro_torch.models.api import build_decode_fn, build_loss_fn
+from repro_torch.distributed.sharding import NO_SHARDING, ShardingRules
+from repro_torch.models.api import build_decode_fn, build_loss_fn, spmd
 from repro_torch.models.params import flatten_names, unflatten_names
 from repro_torch.optim.adamw import AdamWConfig, apply_update
 
@@ -32,19 +38,27 @@ from repro_torch.optim.adamw import AdamWConfig, apply_update
 def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                      compress_grads: bool = False, remat: bool = True,
                      n_microbatches: int = 1,
-                     acc_dtype: torch.dtype = torch.float32):
+                     acc_dtype: torch.dtype = torch.float32,
+                     rules: ShardingRules = NO_SHARDING):
     """(params, opt_state, batch) → (params, opt_state, metrics); with
     ``compress_grads``, (params, opt_state, residuals, batch) →
     (params, opt_state, residuals, metrics)."""
     if n_microbatches < 1:
         raise ValueError(f"n_microbatches={n_microbatches} must be >= 1")
-    loss_fn = build_loss_fn(cfg, remat=remat)
+    loss_fn = build_loss_fn(cfg, remat=remat, rules=rules)
 
     def value_and_grad(params, batch) -> Tuple[torch.Tensor, Dict]:
         flat = {k: v.detach().requires_grad_(True)
                 for k, v in flatten_names(params).items()}
-        loss = loss_fn(unflatten_names(flat), batch)
-        grads = torch.autograd.grad(loss, list(flat.values()))
+        with spmd(flat):
+            loss = loss_fn(unflatten_names(flat), batch)
+            # a leaf the loss does not reach (whisper's learned decoder
+            # positions above 448 tokens) takes a zero gradient, as
+            # jax.grad gives it
+            grads = torch.autograd.grad(loss, list(flat.values()),
+                                        allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(flat.values(), grads)]
         return loss.detach(), dict(zip(flat, grads))
 
     def grads_of(params, batch):
@@ -65,9 +79,8 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             loss, grads = value_and_grad(params, mb)
             losses.append(loss)
             if acc is None:
-                acc = {k: torch.zeros(g.shape, dtype=acc_dtype,
-                                      device=g.device) for k, g in
-                       grads.items()}
+                acc = {k: torch.zeros_like(g, dtype=acc_dtype)
+                       for k, g in grads.items()}
             for k, g in grads.items():
                 acc[k] = acc[k] + g.to(acc_dtype)
         inv = 1.0 / m
@@ -87,26 +100,42 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
     def train_step(params, opt_state, batch):
         loss, grads = grads_of(params, batch)
-        params, opt_state, metrics = apply_update(params, grads, opt_state,
-                                                  opt_cfg)
+        with spmd(params):
+            params, opt_state, metrics = apply_update(params, grads,
+                                                      opt_state, opt_cfg)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
     return train_step
 
 
-def build_serve_step(cfg: ModelConfig, greedy: bool = True):
+def _whole_vocab(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's last (vocabulary) axis gathered whole on each rank (a
+    decode step's (B, V) logits, for the argmax); anything else as it
+    is."""
+    if not isinstance(x, DTensor):
+        return x
+    last = x.ndim - 1
+    return x.redistribute(x.device_mesh, [
+        Replicate() if isinstance(p, Shard) and p.dim == last
+        or p.is_partial() else p for p in x.placements])
+
+
+def build_serve_step(cfg: ModelConfig, greedy: bool = True,
+                     rules: ShardingRules = NO_SHARDING):
     """(params, tokens (B, 1), cache, pos: int) → (next_tok int32
     (B, 1), logits (B, 1, V_pad), cache). The next token is the argmax
     on the device (``greedy``; otherwise the input tokens, as in the
     reference); nothing is copied to the host."""
-    decode = build_decode_fn(cfg)
+    decode = build_decode_fn(cfg, rules)
 
     @torch.no_grad()
     def serve_step(params, tokens, cache, pos):
         logits, cache = decode(params, tokens, cache, pos)
         if greedy:
-            next_tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+            with spmd(params):
+                next_tok = torch.argmax(_whole_vocab(logits[:, -1, :]),
+                                        dim=-1)[:, None]
         else:
             next_tok = tokens
         return next_tok.to(torch.int32), logits, cache

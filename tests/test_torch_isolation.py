@@ -89,7 +89,8 @@ def test_import_every_submodule_loads_no_jax_and_no_repro():
               "repro_torch.analysis", "repro_torch.analysis.__main__",
               "repro_torch.analysis.sanitize", "repro_torch.analysis.lint",
               "repro_torch.analysis.smem", "repro_torch.analysis.tick_audit",
-              "repro_torch.analysis.sentinel")
+              "repro_torch.analysis.sentinel", "repro_torch.launch.mesh",
+              "repro_torch.launch.op_analysis", "repro_torch.launch.dryrun")
     assert set(ported) <= set(names)
     code = ("import importlib, sys\n"
             f"for m in {names!r}: importlib.import_module(m)\n"
