@@ -1,0 +1,8 @@
+"""The share of the traced window in which the device was idle while
+the host was inside `FingerService.poll` (span ``finger.poll``), in
+%."""
+from bench import program_spans
+
+
+def read(rec):
+    return program_spans.idle_within_pct(rec.trace, ("finger.poll",))

@@ -29,7 +29,9 @@ stacked launch (shared memory and the residency budget).
 
 ``LAUNCHES`` counts kernel launches by entry point (never plain-version
 calls): ``sparse_tick`` for `sparse_tick_fused`, ``sparse_tick_stacked``
-for `sparse_tick_fused_stacked`.
+for `sparse_tick_fused_stacked`. Each launch, the ctypes call and its
+error check, is the span ``finger.tick.launch`` (`repro_torch.tracing`)
+while a profiler records; the operand checks before it are not.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.sparse import SparseStreamState
 from repro_torch.graphs.types import GraphDelta
 from repro_torch.kernels import dispatch
@@ -124,10 +127,12 @@ def _launch(name: str, states: SparseStreamState, deltas: GraphDelta,
     nid, nflag = (None, None) if j == 0 else (slots[0].data_ptr(),
                                                 slots[1].data_ptr())
     rows = int(torch.Size(lead).numel())
-    err = fn(*(t.data_ptr() for t in st + dl), nid, nflag,
-             dist.data_ptr(), *(t.data_ptr() for t in outs), rows, n, m, k,
-             j, int(bool(exact_smax)), dispatch.stream_handle(dev))
-    dispatch.check_launch("sparse_tick", err)
+    with tracing.span("finger.tick.launch"):
+        err = fn(*(t.data_ptr() for t in st + dl), nid, nflag,
+                 dist.data_ptr(), *(t.data_ptr() for t in outs), rows, n,
+                 m, k, j, int(bool(exact_smax)),
+                 dispatch.stream_handle(dev))
+        dispatch.check_launch("sparse_tick", err)
     LAUNCHES[name] += 1
     if inplace:
         return dist, states

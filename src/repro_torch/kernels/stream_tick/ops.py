@@ -25,7 +25,9 @@ stacked launch (shared memory and the residency budget).
 
 ``LAUNCHES`` counts kernel launches by entry point (never plain-version
 calls): ``stream_tick`` for `stream_tick_fused`, ``stream_tick_stacked``
-for `stream_tick_fused_stacked`.
+for `stream_tick_fused_stacked`. Each launch, the ctypes call and its
+error check, is the span ``finger.tick.launch`` (`repro_torch.tracing`)
+while a profiler records; the operand checks before it are not.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.state import FingerState
 from repro_torch.graphs.types import GraphDelta
 from repro_torch.kernels import dispatch
@@ -131,10 +134,11 @@ def _launch(name: str, states: FingerState, deltas: GraphDelta,
     fn.restype = _I
     nid, nflag = (None, None) if j == 0 else (slots[0].data_ptr(),
                                                 slots[1].data_ptr())
-    err = fn(*(t.data_ptr() for t in st + dl), nid, nflag,
-             dist.data_ptr(), *(t.data_ptr() for t in outs), rows, n, k, j,
-             int(bool(exact_smax)), dispatch.stream_handle(dev))
-    dispatch.check_launch("stream_tick", err)
+    with tracing.span("finger.tick.launch"):
+        err = fn(*(t.data_ptr() for t in st + dl), nid, nflag,
+                 dist.data_ptr(), *(t.data_ptr() for t in outs), rows, n,
+                 k, j, int(bool(exact_smax)), dispatch.stream_handle(dev))
+        dispatch.check_launch("stream_tick", err)
     LAUNCHES[name] += 1
     if inplace:
         return dist, states

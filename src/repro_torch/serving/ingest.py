@@ -20,6 +20,15 @@ The port's counterpart of `repro.serving.ingest`:
   them as soon as `ingest` returns. On the CPU both ingestors only
   queue host tensors.
 
+A staging is three spans (`repro_torch.tracing`): ``finger.ingest.pin``
+(the slot's pinned buffer and the copies into it),
+``finger.ingest.enqueue`` (the device buffer on the side stream, the
+copy's enqueue, the event) and, only when the slot's previous copy has
+not landed, ``finger.ingest.slot_wait`` (the host blocked on it).
+`counts` sums the stagers' counters (`COUNTERS`) over shards:
+``slot_waits / staged`` rising means the producer outruns the copy
+engine, and ``staged_bytes / staged`` is a shard's bytes copied a tick.
+
 Both feed the plan through `ExecutionPlan.put_deltas`: the local plan
 takes one block, a sharded plan one block a shard (a `Sharded` delta).
 
@@ -31,11 +40,11 @@ queue at ``config.max_queue``.
 A migration builds a new ingestor for the new plan, which takes over
 the old one's stagers (`make_ingestor(..., previous=)`): the side
 streams, and with them the caching allocator's blocks of each stream,
-and the pinned slots. A fresh side stream would have no cached blocks,
-so the first `put` after every migration would pay a ``cudaMalloc``
-(and fresh pinned slots a ``cudaHostAlloc``): a first-use cost that
-`warm_next_layouts` cannot pay ahead. The delta's shapes do not depend
-on the layout, so the slots still fit.
+the pinned slots and the counters. A fresh side stream would have no
+cached blocks, so the first `put` after every migration would pay a
+``cudaMalloc`` (and fresh pinned slots a ``cudaHostAlloc``): a
+first-use cost that `warm_next_layouts` cannot pay ahead. The delta's
+shapes do not depend on the layout, so the slots still fit.
 
 Layout migrations: after a `FingerService.compact` (or any migration),
 producers may still send deltas addressed in an older layout for a
@@ -66,11 +75,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.distributed.sharding import each
 from repro_torch.graphs.types import GraphDelta
 from repro_torch.serving.config import ServiceConfig
 
 _ALIGN = 256  # bytes between the fields of a staging buffer
+COUNTERS = ("staged", "staged_bytes", "slot_waits")
 
 
 class IngestError(ValueError):
@@ -283,10 +294,19 @@ class SyncIngestor:
     def drain(self) -> None:
         self._queue.clear()
 
+    def counts(self) -> Dict[str, int]:
+        """The staging counters of `COUNTERS`, summed over shards: zero,
+        as nothing is staged ahead here."""
+        return dict.fromkeys(COUNTERS, 0)
+
 
 class _Stager:
     """One shard's staging for the double-buffered ingestor: a ring of
-    pinned host slots and the side stream of the shard's device."""
+    pinned host slots and the side stream of the shard's device, and
+    its counters: ``staged`` deltas, ``staged_bytes`` copied (each
+    field of a slot 256-B aligned) and ``slot_waits``, the stagings
+    that found their slot's previous copy still in flight and blocked
+    on it."""
 
     def __init__(self, device: torch.device, n_slots: int,
                  side: torch.cuda.Stream):
@@ -297,6 +317,9 @@ class _Stager:
         self._slots: List[Optional[Tuple]] = [None] * n_slots
         self._events: List[Optional[torch.cuda.Event]] = [None] * n_slots
         self._next = 0
+        self.staged = 0
+        self.staged_bytes = 0
+        self.slot_waits = 0
 
     @staticmethod
     def _fields(deltas: GraphDelta) -> Tuple:
@@ -321,21 +344,28 @@ class _Stager:
         fields, nbytes = self._fields(deltas)
         i = self._next
         self._next = (i + 1) % len(self._slots)
-        if self._events[i] is not None:
-            self._events[i].synchronize()  # the slot's last copy landed
-        if self._slots[i] is None or self._slots[i][0] != fields:
-            self._slots[i] = (fields, torch.empty(
-                nbytes, dtype=torch.uint8, pin_memory=True))
-        pinned = self._slots[i][1]
-        src = deltas.tensors()
-        for name, view in self._views(pinned, fields).items():
-            view.copy_(src[name])
-        with torch.cuda.stream(self.side):
+        last = self._events[i]
+        if last is not None and not last.query():
+            self.slot_waits += 1
+            with tracing.span("finger.ingest.slot_wait"):
+                last.synchronize()  # the slot's last copy lands
+        with tracing.span("finger.ingest.pin"):
+            if self._slots[i] is None or self._slots[i][0] != fields:
+                self._slots[i] = (fields, torch.empty(
+                    nbytes, dtype=torch.uint8, pin_memory=True))
+            pinned = self._slots[i][1]
+            src = deltas.tensors()
+            for name, view in self._views(pinned, fields).items():
+                view.copy_(src[name])
+        with tracing.span("finger.ingest.enqueue"), \
+                torch.cuda.stream(self.side):
             buf = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
             buf.copy_(pinned, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self.side)
         self._events[i] = event
+        self.staged += 1
+        self.staged_bytes += nbytes
         views = self._views(buf, fields)
         return dataclasses.replace(deltas, **views), event, buf
 
@@ -376,6 +406,10 @@ class DoubleBufferedIngestor(SyncIngestor):
 
     def get(self):
         return self.pop()
+
+    def counts(self) -> Dict[str, int]:
+        return {c: sum(getattr(st, c) for st in self._stagers)
+                for c in COUNTERS}
 
 
 def make_ingestor(config: ServiceConfig, plan,

@@ -52,6 +52,15 @@ gathers the shards to the host.
 The fleet's hooks: `begin_pool_tick` / `finish_pool_tick` let a
 pool-stacked launch tick this service's queue, and `extract_stream` /
 `install_stream` / `clear_stream` move one stream between services.
+
+While a `torch.profiler` records, the serving loop's calls are spans
+on its clock (`repro_torch.tracing`): ``finger.ingest``,
+``finger.poll``, ``finger.scores`` and ``finger.top_anomalies``, each
+the whole call, and ``finger.scores.wait``, the host blocked until the
+last tick's work has ended on the card (`poll` then records an event
+a card that `scores` waits on before its copy; with no profiler there
+is no event and the copy waits as it would). `ingest_counts` gives the
+staging counters, which need no profiler.
 """
 from __future__ import annotations
 
@@ -64,6 +73,7 @@ from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.sparse import SlotMap, SparseLayout, SparseStreamState
 from repro_torch.core.state import FingerState
 from repro_torch.distributed.sharding import DeviceGrid, Sharded, each
@@ -197,6 +207,9 @@ class FingerService:
         self._plan_cache = PlanCache()
         self._ingestor = self._make_ingestor(None)
         self._last_scores: Optional[torch.Tensor] = None
+        # the last tick's end on each card, recorded only while a
+        # profiler records, for `scores`' wait span
+        self._tick_done: Optional[List[torch.cuda.Event]] = None
         self._closed = False
 
     def _make_ingestor(self, previous):
@@ -433,12 +446,23 @@ class FingerService:
         ``method="sparse_tick"``, the list of B per-stream virtual
         deltas only."""
         self._check_open("ingest")
-        if self._config.method == "sparse_tick":
-            self._ingest_sparse(deltas)
-            return
-        if not isinstance(deltas, GraphDelta):
-            deltas = stack_deltas(list(deltas))
-        self._ingestor.put(deltas)
+        with tracing.span("finger.ingest"):
+            if self._config.method == "sparse_tick":
+                self._ingest_sparse(deltas)
+                return
+            if not isinstance(deltas, GraphDelta):
+                deltas = stack_deltas(list(deltas))
+            self._ingestor.put(deltas)
+
+    def ingest_counts(self) -> Dict[str, int]:
+        """The double-buffered ingestor's staging counters, summed over
+        shards (zero for the sync ingestor and on the CPU): ``staged``
+        deltas, ``staged_bytes`` copied and ``slot_waits``, the
+        stagings that blocked on their ring slot's previous copy.
+        ``slot_waits / staged`` rising means the producer outruns the
+        copy engine; ``staged_bytes / staged`` is a shard's bytes a
+        tick. They survive migrations."""
+        return self._ingestor.counts()
 
     def _ingest_sparse(self, deltas) -> None:
         """Translate one tick's B per-stream virtual deltas through the
@@ -480,11 +504,16 @@ class FingerService:
         tick is launched asynchronously; `scores()` waits for it. Saves
         a checkpoint every ``checkpoint.every_ticks`` ticks."""
         self._check_open("poll")
-        deltas = self._ingestor.get()
-        if deltas is None:
-            return None
-        dists, self._states = self._plan.tick(self._states, deltas)
-        return self._finish_tick(dists)
+        with tracing.span("finger.poll"):
+            deltas = self._ingestor.get()
+            if deltas is None:
+                return None
+            dists, self._states = self._plan.tick(self._states, deltas)
+            if tracing.recording():
+                self._tick_done = [torch.cuda.current_stream(d).record_event()
+                                   for d in self._plan.devices
+                                   if d.type == "cuda"]
+            return self._finish_tick(dists)
 
     def _finish_tick(self, scores: torch.Tensor) -> TickReport:
         self._last_scores = scores
@@ -527,7 +556,13 @@ class FingerService:
         self._check_open("scores")
         if self._last_scores is None:
             return None
-        return self._plan.gather(self._last_scores).numpy()
+        with tracing.span("finger.scores"):
+            if self._tick_done:
+                with tracing.span("finger.scores.wait"):
+                    for event in self._tick_done:
+                        event.synchronize()
+                self._tick_done = None
+            return self._plan.gather(self._last_scores).numpy()
 
     def top_anomalies(self, k: Optional[int] = None, per_pod: bool = False
                       ) -> Tuple[np.ndarray, np.ndarray]:
@@ -541,15 +576,16 @@ class FingerService:
             raise ServiceLifecycleError(
                 "top_anomalies before the first completed tick")
         k = self._config.topk.k if k is None else k
-        if per_pod:
-            if not isinstance(self._plan, MultiPodPlan):
-                raise ServiceConfigError(
-                    "per_pod top-k needs placement='multipod', got "
-                    f"{self._config.placement!r}")
-            vals, ids = self._plan.pod_topk(self._last_scores, k)
-        else:
-            vals, ids = self._plan.topk(self._last_scores, k)
-        return vals.cpu().numpy(), ids.cpu().numpy()
+        with tracing.span("finger.top_anomalies"):
+            if per_pod:
+                if not isinstance(self._plan, MultiPodPlan):
+                    raise ServiceConfigError(
+                        "per_pod top-k needs placement='multipod', got "
+                        f"{self._config.placement!r}")
+                vals, ids = self._plan.pod_topk(self._last_scores, k)
+            else:
+                vals, ids = self._plan.topk(self._last_scores, k)
+            return vals.cpu().numpy(), ids.cpu().numpy()
 
     def score_at(self, slot: int) -> Optional[float]:
         """The latest tick's score of one stream slot; None before the

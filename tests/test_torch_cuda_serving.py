@@ -340,3 +340,195 @@ def test_sparse_double_buffered_grows_with_a_tick_queued(cuda):
         out[mode] = (_bits(svc), [m.to_json() for m in svc.slot_maps])
     _assert_bits(out["sync"][0], out["double_buffered"][0], "sparse")
     assert out["sync"][1] == out["double_buffered"][1]
+
+
+def _staged_bytes(delta):
+    return sum(-(-t.numel() * t.element_size() // 256) * 256
+               for t in delta.tensors().values())
+
+
+def test_slot_waits_count_only_stagings_that_blocked(cuda):
+    """With every copy landed before its slot comes round again no
+    staging blocks; with the side stream held by a sleep kernel the
+    fourth staging finds the first one's slot still copying and waits
+    for it, once. A repad hands the counters over with the stagers, and
+    the waited ticks still match the sync service bit for bit."""
+    svcs = _services([cuda], INGESTIONS, _graphs())
+    db, sync = svcs[(str(cuda), "double_buffered")], \
+        svcs[(str(cuda), "sync")]
+    assert sync.ingest_counts() == {"staged": 0, "staged_bytes": 0,
+                                    "slot_waits": 0}
+    ticks = _ticks(8, seed=10)
+    per_tick = _staged_bytes(ticks[0])
+    for d in ticks[:4]:
+        db.ingest(d)
+        db.poll()
+        torch.cuda.synchronize()
+    assert db.ingest_counts() == {"staged": 4, "staged_bytes": 4 * per_tick,
+                                  "slot_waits": 0}
+    with torch.cuda.stream(db._ingestor._stagers[0].side):
+        torch.cuda._sleep(100_000_000)  # holds the copies back
+    for d in ticks[4:]:
+        db.ingest(d)
+        db.poll()
+    assert db.ingest_counts() == {"staged": 8, "staged_bytes": 8 * per_tick,
+                                  "slot_waits": 1}
+    for d in ticks:
+        sync.ingest(d)
+        sync.poll()
+    _assert_bits(_bits(db), _bits(sync), "after the held copies")
+    db.repad(2 * N_PAD)
+    assert db.ingest_counts()["staged"] == 8
+    assert sync.ingest_counts()["staged"] == 0
+
+
+def test_no_event_and_no_span_without_a_profiler(cuda, monkeypatch):
+    """With no profiler recording, a tick creates one event (its copy's,
+    in the staging) and enters no `record_function`."""
+    svc = _services([cuda], ("double_buffered",), _graphs())[
+        (str(cuda), "double_buffered")]
+    ticks = _ticks(4, seed=11)
+    svc.ingest(ticks[0])
+    svc.poll()
+    svc.scores()
+    made, entered = [], []
+    real_event = torch.cuda.Event
+    real_record = torch.profiler.record_function
+    monkeypatch.setattr(torch.cuda, "Event", lambda *a, **kw: made.append(
+        1) or real_event(*a, **kw))
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda *a, **kw: entered.append(a) or real_record(
+                            *a, **kw))
+    for d in ticks[1:]:
+        svc.ingest(d)
+        svc.poll()
+        svc.scores()
+        svc.top_anomalies()
+    assert len(made) == 3 and entered == []
+
+
+SPANS_SCRIPT = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+sys.path.insert(0, sys.argv[2])
+import test_torch_cuda_serving as t
+cuda = torch.device("cuda")
+svc = t._services([cuda], ("double_buffered",), t._graphs())[
+    (str(cuda), "double_buffered")]
+ticks = t._ticks(12, seed=9)
+for d in ticks[:4]:
+    svc.ingest(d); svc.poll(); svc.scores(); svc.top_anomalies()
+torch.cuda.synchronize()
+counts = [svc.ingest_counts()]
+acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+with profile(activities=acts) as p:
+    with record_function("test.landed"):
+        for d in ticks[4:8]:
+            svc.ingest(d)
+            torch.cuda._sleep(20_000_000)  # the kernel starts ms later
+            svc.poll(); svc.scores(); svc.top_anomalies()
+            torch.cuda.synchronize()
+    counts.append(svc.ingest_counts())
+    with record_function("test.held"):
+        with torch.cuda.stream(svc._ingestor._stagers[0].side):
+            torch.cuda._sleep(100_000_000)
+        for d in ticks[8:]:
+            svc.ingest(d); svc.poll()
+        svc.scores()
+    torch.cuda.synchronize()
+counts.append(svc.ingest_counts())
+p.export_chrome_trace(sys.argv[1])
+events = json.load(open(sys.argv[1]))["traceEvents"]
+def pick(cat):
+    return sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                   e["name"]) for e in events
+                  if e.get("ph") == "X" and e.get("cat") == cat)
+print(json.dumps({"spans": pick("user_annotation"),
+                  "kernels": pick("kernel"), "counts": counts}))
+"""
+
+
+@pytest.fixture(scope="module")
+def traced_ticks(tmp_path_factory):
+    """Four double-buffered ticks, each kernel held behind a sleep and
+    each tick landed before the next, then four with the side stream
+    held by a sleep, under `torch.profiler`
+    in a process of its own (a second session in one process records
+    no device events)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the serving ticks launch the "
+                    "hand-written kernels, which run only on the card")
+    tests = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(tests.parent / "src"), os.environ.get("PYTHONPATH", "")]))
+    path = tmp_path_factory.mktemp("spans") / "trace.json"
+    proc = subprocess.run(
+        [sys.executable, "-c", SPANS_SCRIPT, str(path), str(tests)],
+        capture_output=True, text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _within(spans, name, window):
+    return [s for s in spans if s[2] == name
+            and window[0] <= s[0] and s[1] <= window[1]]
+
+
+def test_a_traced_tick_has_the_stagings_launch_and_wait_spans(traced_ticks):
+    spans = traced_ticks["spans"]
+    (landed,) = [s for s in spans if s[2] == "test.landed"]
+    for name in ("finger.ingest", "finger.ingest.pin",
+                 "finger.ingest.enqueue", "finger.poll",
+                 "finger.tick.launch", "finger.scores",
+                 "finger.scores.wait", "finger.top_anomalies"):
+        assert len(_within(spans, name, landed)) == 4, name
+    for child, parent in (("finger.ingest.pin", "finger.ingest"),
+                          ("finger.ingest.enqueue", "finger.ingest"),
+                          ("finger.tick.launch", "finger.poll"),
+                          ("finger.scores.wait", "finger.scores")):
+        for c, p in zip(_within(spans, child, landed),
+                        _within(spans, parent, landed)):
+            assert p[0] <= c[0] <= c[1] <= p[1], (child, c, p)
+
+
+# The profiler maps the card's timestamps onto the host's clock to within
+# tens of µs: one run read a 10-µs kernel 20 µs before its launch span.
+CLOCK_SLACK_US = 100.0
+
+
+def test_spans_and_kernels_share_the_profilers_clock(traced_ticks):
+    """Each tick's kernel is held about 10 ms behind a sleep kernel:
+    its launch span starts before it does, and it ends before the wait
+    span that `scores` holds for it ends, within the profiler's clock
+    mapping."""
+    spans = traced_ticks["spans"]
+    (landed,) = [s for s in spans if s[2] == "test.landed"]
+    kernels = [k for k in traced_ticks["kernels"]
+               if "tick_kernel" in k[2] and landed[0] <= k[0] <= landed[1]]
+    launches = _within(spans, "finger.tick.launch", landed)
+    waits = _within(spans, "finger.scores.wait", landed)
+    assert len(kernels) == len(launches) == len(waits) == 4
+    for launch, kernel, wait in zip(launches, kernels, waits):
+        assert launch[0] < kernel[0] + CLOCK_SLACK_US, (launch, kernel)
+        assert wait[0] < kernel[1], (kernel, wait)
+        assert kernel[1] <= wait[1] + CLOCK_SLACK_US, (kernel, wait)
+
+
+def test_slot_wait_spans_only_where_a_copy_had_not_landed(traced_ticks):
+    spans = traced_ticks["spans"]
+    c0, c1, c2 = traced_ticks["counts"]
+    (landed,) = [s for s in spans if s[2] == "test.landed"]
+    (held,) = [s for s in spans if s[2] == "test.held"]
+    assert c1["slot_waits"] == c0["slot_waits"]
+    assert _within(spans, "finger.ingest.slot_wait", landed) == []
+    waits = [s for s in spans if s[2] == "finger.ingest.slot_wait"]
+    assert c2["slot_waits"] - c1["slot_waits"] == len(waits) == 1
+    assert _within(spans, "finger.ingest.slot_wait", held) == waits
+    assert c2["staged"] - c0["staged"] == 8
