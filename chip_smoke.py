@@ -13,7 +13,10 @@ a line of its own; any failure exits non-zero:
              ``stream_tick`` at the serving size and at a ragged size
              (n_pad not a multiple of 128, odd k, 3 join slots) over
              the edge-case batch of `kernels/stream_tick/parity.py`,
-             both ``exact_smax`` values, out of place and in place;
+             both ``exact_smax`` values, out of place and in place,
+             and on its stress cases; each shape at one warp a stream
+             and, where the rule splits it, at the rule's warps too,
+             the two bit-equal;
              ``stream_tick_fused_stacked`` at S = 3 × B = 2048 (its
              time is taken on phase 8's inputs); ``delta_stats``
              from the gated delta (and ungated) against
@@ -417,6 +420,7 @@ must be the real blocks' bytes.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -838,39 +842,58 @@ def phase_kernels(args, torch, out, dev):
     errs = {"stream_tick": 0.0, "stream_tick_stacked": 0.0,
             "delta_stats": 0.0, "sparse_tick": 0.0,
             "sparse_tick_stacked": 0.0}
+    # each shape at one warp a stream and, where the rule splits it, at
+    # the rule's warps too: both against the plain version and each other
     for shape in ((args.batch, N_PAD, K_PAD, J_PAD), (1000, 333, 37, 3)):
         states, deltas = st_parity.make_case(*shape, seed=args.seed,
                                              device=dev)
         for exact in (False, True):
             want = stream_tick_ref(states, deltas, exact_smax=exact)
             for inplace in (False, True):
-                work = states.map_tensors(torch.clone) if inplace else states
-                got = st_ops.stream_tick_fused(work, deltas, exact_smax=exact,
-                                               inplace=inplace)
-                err = st_parity.compare(got, want, f"stream_tick {shape}")
-                errs["stream_tick"] = max(errs["stream_tick"], err)
-                print(f"  stream_tick B,n,k,j={shape} exact_smax={exact} "
-                      f"inplace={inplace}: max_abs_err={err:.3e}")
-                del work, got
+                ticks = []
+                for w in tick_warps(torch, st_ops, shape):
+                    work = states.map_tensors(torch.clone) if inplace \
+                        else states
+                    with warps_forced(st_ops, w):
+                        got = st_ops.stream_tick_fused(
+                            work, deltas, exact_smax=exact, inplace=inplace)
+                    err = st_parity.compare(got, want, f"stream_tick {shape}")
+                    errs["stream_tick"] = max(errs["stream_tick"], err)
+                    print(f"  stream_tick B,n,k,j={shape} W={w} "
+                          f"exact_smax={exact} inplace={inplace}: "
+                          f"max_abs_err={err:.3e}")
+                    ticks.append(got)
+                    del work, got
+                check_bits(torch, f"stream_tick {shape} split", *ticks)
+                del ticks
         del states, deltas, want
     for label, shape in st_parity.STRESS.items():
         states, deltas = st_parity.make_case(*shape, seed=args.seed,
                                              device=dev, kind="stress")
         for exact in (False, True):
-            got = st_ops.stream_tick_fused(states, deltas, exact_smax=exact)
-            err = st_parity.compare(got, stream_tick_ref(
-                states, deltas, exact_smax=exact), f"stream_tick {label}")
-            errs["stream_tick"] = max(errs["stream_tick"], err)
-            again = st_ops.stream_tick_fused(states, deltas,
-                                             exact_smax=exact)
-            inplace = st_ops.stream_tick_fused(
-                states.map_tensors(torch.clone), deltas, exact_smax=exact,
-                inplace=True)
-            check_bits(torch, f"stream_tick {label}", got, again, inplace)
-            print(f"  stream_tick stress {label} B,n,k,j={shape} "
-                  f"exact_smax={exact}: max_abs_err={err:.3e}; a second "
-                  "launch and in place bit-equal")
-        del states, deltas, got, again, inplace
+            want = stream_tick_ref(states, deltas, exact_smax=exact)
+            ticks = []
+            for w in tick_warps(torch, st_ops, shape):
+                with warps_forced(st_ops, w):
+                    got = st_ops.stream_tick_fused(states, deltas,
+                                                   exact_smax=exact)
+                    again = st_ops.stream_tick_fused(states, deltas,
+                                                     exact_smax=exact)
+                    inplace = st_ops.stream_tick_fused(
+                        states.map_tensors(torch.clone), deltas,
+                        exact_smax=exact, inplace=True)
+                err = st_parity.compare(got, want, f"stream_tick {label}")
+                errs["stream_tick"] = max(errs["stream_tick"], err)
+                check_bits(torch, f"stream_tick {label} W={w}", got, again,
+                           inplace)
+                print(f"  stream_tick stress {label} B,n,k,j={shape} W={w} "
+                      f"exact_smax={exact}: max_abs_err={err:.3e}; a second "
+                      "launch and in place bit-equal")
+                ticks.append(got)
+                del got, again, inplace
+            check_bits(torch, f"stream_tick {label} split", *ticks)
+            del want, ticks
+        del states, deltas
     cases = [st_parity.make_case(2048, N_PAD, K_PAD, J_PAD,
                                  seed=args.seed + s, device=dev)
              for s in range(3)]
@@ -984,6 +1007,27 @@ def phase_kernels_delta_stats(args, torch, errs, dev):
         err = check(f"lead={lead} k={k}", strengths, delta)
         print(f"  delta_stats leading axes {lead} k={k}: "
               f"max_abs_err={err:.3e}")
+
+
+def tick_warps(torch, st_ops, shape) -> tuple:
+    """The warps a stream phase 2 runs the stream tick at for ``shape``
+    (B, n, k, j): 1, and the rule's W where the rule splits the rows."""
+    rows, n, k, j = shape
+    rule = st_ops.warps_per_stream(
+        rows, n, *st_ops._capacity(torch.cuda.current_device(), k, j))
+    return (1, rule) if rule > 1 else (1,)
+
+
+@contextlib.contextmanager
+def warps_forced(st_ops, warps: int):
+    """The stream tick at ``warps`` warps a stream whatever the shape, as
+    the card tests force it; the rule is put back after."""
+    rule = st_ops.warps_per_stream
+    st_ops.warps_per_stream = lambda *a, **kw: warps
+    try:
+        yield
+    finally:
+        st_ops.warps_per_stream = rule
 
 
 def check_bits(torch, label, got, *others) -> None:
@@ -3795,7 +3839,6 @@ def paper_row_names() -> dict:
 def captured(fn, *fn_args, **fn_kw):
     """(fn's result, its standard output); the output is also printed,
     indented, for a reader."""
-    import contextlib
     import io
 
     buf = io.StringIO()
@@ -4211,7 +4254,6 @@ def phase_models(args, torch, out, dev):
 
 def phase_analysis(args, torch, out, dev):
     """Phase 12: `repro_torch.analysis`'s gate in this process."""
-    import contextlib
     import io
 
     from repro_torch.analysis.__main__ import main as analysis_main

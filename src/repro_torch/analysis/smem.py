@@ -16,7 +16,13 @@ the paths in ``chip_smoke.py`` and of the serving tests:
 
 - ``tick_kernel<false|true, 0|2|4|8>`` (``stream_tick`` / ``sparse_tick``):
   phase 3 (B 32768, k 128, j 8), phase 5 (1024 streams, k 128), phase
-  8's stacked groups, the parity and stress cases, the sentinel's k = 3;
+  8's stacked groups, the parity and stress cases (those the stream
+  tick splits at one warp a stream too, as phase 2 and the card tests
+  force it), the sentinel's k = 3;
+- ``tick_kernel<false, 0|2|4|8, true>``, the stream tick split over
+  2, 4 or 8 warps a stream (``SPLIT_SHAPES``), at the warps
+  `stream_tick.ops.warps_per_stream` gives on the card: the benchmark's
+  512 long rows and the parity and stress cases;
 - ``delta_stats_kernel<0|2|4|8>`` at k = 1 … 8192 and the sorted-form
   kernel at k = 9000;
 - ``vnge_q_kernel<true|false>`` at n = 40, 1000 and 8192;
@@ -80,6 +86,16 @@ TICK_SHAPES = {
         ("sentinel k=3", 4, 3, 2),
     ),
 }
+# (label, rows, n, k, j) of the stream tick launches the rule splits on
+# an H100 (W 8, 2, 2, 8, 4 and 4)
+SPLIT_SHAPES = (
+    ("amazon-copurchase B=512", 512, 262144, 8, 4),
+    ("parity ragged k=37", 1000, 333, 37, 3),
+    ("stress k=37", 64, 333, 37, 3),
+    ("stress serving k=128", 256, 1024, 128, 8),
+    ("stress k=200", 64, 808, 200, 4),
+    ("stress k=1024", 32, 4104, 1024, 8),
+)
 # (label, rows, k): the one-launch route up to max_fused_k, then sorted
 DELTA_SHAPES = (("k=1", 1, 1), ("k=7", 1, 7), ("k=32", 1, 32),
                 ("k=64", 1, 64), ("k=128 B=1024", 1024, 128),
@@ -192,6 +208,7 @@ def collect_launch_configs(device: dispatch.Device = None
     on the card of ``device``."""
     dev = _card(device)
     from repro_torch.kernels.delta_stats.ops import max_fused_k
+    from repro_torch.kernels.stream_tick import ops as st_ops
 
     out: List[LaunchConfig] = []
     with torch.cuda.device(dev):
@@ -200,6 +217,12 @@ def collect_launch_configs(device: dispatch.Device = None
                 out.append(_config(name, 0, label,
                                    dispatch.smem_fits(name, k, j, dev),
                                    rows, k, j))
+        for label, rows, n, k, j in SPLIT_SHAPES:
+            warps = st_ops.warps_per_stream(
+                rows, n, *st_ops._capacity(torch.cuda.current_device(), k, j))
+            out.append(_config("stream_tick", warps, f"{label} W={warps}",
+                               dispatch.smem_fits("stream_tick", k, j, dev),
+                               rows, k, j))
         k_max = max_fused_k()
         for label, rows, k in DELTA_SHAPES:
             one = k <= k_max

@@ -44,7 +44,7 @@ REPRO_EXPORT int sparse_tick_launch_attrs(int which, long long rows,
                                           long long* out, char* name, int cap) {
   (void)which;
   (void)j;
-  return launch_attributes(tick_config<true>(rows, static_cast<int>(k)),
+  return launch_attributes(tick_config<true>(rows, static_cast<int>(k), 1),
                            k >= 0, out, name, cap);
 }
 
@@ -72,5 +72,5 @@ REPRO_EXPORT int sparse_tick_launch(
                            receivers, dw, w_old, emask, nid, nflag, dist,
                            q_out, s_out, smax_out, str_out, mask_out,
                            EdgeStore{edge_weights, edge_slots, ew_out, m},
-                           rows, n, k, j, exact_smax, stream);
+                           rows, n, k, j, exact_smax, 1, stream);
 }

@@ -22,31 +22,34 @@ REPRO_EXPORT long long stream_tick_smem_limit(int device) {
   return smem_optin_limit(device);
 }
 
-// The launch `stream_tick_launch` makes for `rows` streams, k edge lanes and
-// j node slots, with CUDA's attributes of its instantiation
-// (`launch_attributes`: out[kAttrCount], the name into `name`). `which`
-// is 0, the one kernel family here; j does not change the launch
-// (shared memory grows with k only). Returns the cudaError_t of the
-// queries.
+// The launch `stream_tick_launch` makes for `rows` streams, k edge lanes,
+// j node slots and `which` warps a stream (0 reads as 1), with CUDA's
+// attributes of its instantiation (`launch_attributes`: out[kAttrCount],
+// the name into `name`); j does not change the launch (shared memory
+// grows with k only). Returns the cudaError_t of the queries.
 REPRO_EXPORT int stream_tick_launch_attrs(int which, long long rows,
                                           long long k, long long j,
                                           long long* out, char* name, int cap) {
-  (void)which;
   (void)j;
-  return launch_attributes(tick_config<false>(rows, static_cast<int>(k)),
-                           k >= 0, out, name, cap);
+  const int warps = which > 1 ? which : 1;
+  const int kk = static_cast<int>(k);
+  return launch_attributes(tick_config<false>(rows, kk, warps),
+                           k >= 0 && tick_warps_ok<false>(kk, warps), out,
+                           name, cap);
 }
 
-// Resident blocks per SM, streams (warps) per block and registers per
-// thread of the launch for k edge lanes and j node slots, into out[0..2];
-// returns the cudaError_t (0 on success).
+// Resident blocks per SM, warps per block (streams at one warp a stream;
+// the same block at every W) and registers per thread of the launch for
+// k edge lanes and j node slots, into out[0..2]; returns the cudaError_t
+// (0 on success).
 REPRO_EXPORT int stream_tick_residency(int k, int j, int* out) {
   return tick_residency<false>(k, j, out);
 }
 
-// Launch one warp per stream row on `stream`; returns the launch's
-// cudaError_t (0 on success), cudaErrorInvalidValue when the layout for
-// (k, j) exceeds the card's shared memory per block.
+// Launch `warps` warps (1, 2, 4 or 8) per stream row on `stream`; returns
+// the launch's cudaError_t (0 on success), cudaErrorInvalidValue when the
+// layout for (k, j) exceeds the card's shared memory per block or the
+// warps do not divide the block's.
 REPRO_EXPORT int stream_tick_launch(
     const float* q, const float* s_total, const float* s_max,
     const float* strengths, const float* node_mask, const int* senders,
@@ -54,10 +57,10 @@ REPRO_EXPORT int stream_tick_launch(
     const float* emask, const int* nid, const float* nflag, float* dist,
     float* q_out, float* s_out, float* smax_out, float* str_out,
     float* mask_out, int rows, int n, int k, int j, int exact_smax,
-    void* stream) {
+    int warps, void* stream) {
   return launch_tick<false>(q, s_total, s_max, strengths, node_mask, senders,
                             receivers, dw, w_old, emask, nid, nflag, dist,
                             q_out, s_out, smax_out, str_out, mask_out,
                             EdgeStore{nullptr, nullptr, nullptr, 0}, rows, n,
-                            k, j, exact_smax, stream);
+                            k, j, exact_smax, warps, stream);
 }

@@ -23,15 +23,22 @@ value changes) and returns a state over the same tensors.
 `fits_fused_tick_stacked` is the fleet's admission check of one
 stacked launch (shared memory and the residency budget).
 
+How many warps a stream takes, W, comes from the launch's shape alone
+(`warps_per_stream`): one warp a stream where the rows fill the card's
+resident warps, else up to 8 warps splitting each row, so that few long
+rows still keep the card's loads in flight. Every W gives the same bits.
+
 ``LAUNCHES`` counts kernel launches by entry point (never plain-version
 calls): ``stream_tick`` for `stream_tick_fused`, ``stream_tick_stacked``
-for `stream_tick_fused_stacked`. Each launch, the ctypes call and its
+for `stream_tick_fused_stacked`; ``SPLIT_LAUNCHES`` counts those of them
+that took more than one warp a stream. Each launch, the ctypes call and its
 error check, is the span ``finger.tick.launch`` (`repro_torch.tracing`)
 while a profiler records; the operand checks before it are not.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -43,6 +50,11 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.stream_tick.ref import stream_tick_ref
 
 LAUNCHES = {"stream_tick": 0, "stream_tick_stacked": 0}
+SPLIT_LAUNCHES = {"stream_tick": 0, "stream_tick_stacked": 0}
+
+# the elements one warp's row step covers: 32 lanes × kRowSteps
+# (csrc/tick_kernel.cuh)
+ROW_STEP = 32 * 4
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STATE_FIELDS = ("q", "s_total", "s_max", "strengths", "node_mask")
@@ -80,6 +92,31 @@ def fits_fused_tick_stacked(s: int, b: int, n_pad: int, k_pad: int,
     return dispatch.smem_fits("stream_tick", k_pad, j_pad or 0, device) \
         and dispatch.stacked_residency_bytes_ok(
             fused_tick_stacked_bytes(s, b, n_pad, k_pad, j_pad))
+
+
+def warps_per_stream(rows: int, n: int, capacity: int,
+                     warps_per_block: int = 8) -> int:
+    """Warps the stream tick kernel gives each of ``rows`` streams of
+    ``n`` nodes on a card that keeps ``capacity`` warps resident (blocks
+    an SM × SMs × warps a block, `dispatch.residency`).
+
+    1 where the rows fill the card (rows ≥ capacity); otherwise the
+    largest W of 2, 4 and 8 that divides ``warps_per_block``, keeps
+    rows · W ≤ capacity and leaves each warp at least one whole row step
+    (n ≥ W · ROW_STEP), or 1 where none does. The sparse tick always
+    takes one warp a stream (its launcher refuses more)."""
+    return max((w for w in (2, 4, 8) if warps_per_block % w == 0
+                and rows * w <= capacity and n >= w * ROW_STEP), default=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _capacity(index: int, k: int, j: int) -> Tuple[int, int]:
+    """(resident warps on card ``index``, warps a block) of the tick
+    kernel's launch for k edge lanes and j node slots; the same at every
+    W, read once per shape."""
+    res = dispatch.residency("stream_tick", k, j)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return res["streams_per_sm"] * sms, res["streams_per_block"]
 
 
 def _check_layout(name: str, states: FingerState, deltas: GraphDelta):
@@ -127,19 +164,25 @@ def _launch(name: str, states: FingerState, deltas: GraphDelta,
         *(("node slot", t, (*lead, j), dtype)
           for t, dtype in zip(slots, (i32, f32)))])
     dispatch.check_smem("stream_tick", k, j, dev)
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    warps = warps_per_stream(rows, n, *_capacity(index, k, j))
     outs = st if inplace else [torch.empty_like(t) for t in st]
     dist = torch.empty(lead, dtype=torch.float32, device=dev)
     fn = dispatch.library()["stream_tick"].stream_tick_launch
-    fn.argtypes = [_P] * 18 + [_I] * 5 + [_P]
+    fn.argtypes = [_P] * 18 + [_I] * 6 + [_P]
     fn.restype = _I
     nid, nflag = (None, None) if j == 0 else (slots[0].data_ptr(),
                                                 slots[1].data_ptr())
     with tracing.span("finger.tick.launch"):
         err = fn(*(t.data_ptr() for t in st + dl), nid, nflag,
                  dist.data_ptr(), *(t.data_ptr() for t in outs), rows, n,
-                 k, j, int(bool(exact_smax)), dispatch.stream_handle(dev))
+                 k, j, int(bool(exact_smax)), warps,
+                 dispatch.stream_handle(dev))
         dispatch.check_launch("stream_tick", err)
     LAUNCHES[name] += 1
+    if warps > 1:
+        SPLIT_LAUNCHES[name] += 1
     if inplace:
         return dist, states
     return dist, FingerState(*outs, layout=states.layout)

@@ -536,6 +536,12 @@ def test_smem_tables_cover_every_instantiation():
     for name in ("stream_tick", "sparse_tick"):
         assert {_keys_per_lane(k) for _, _, k, _ in
                 smem.TICK_SHAPES[name]} == {0, 2, 4, 8}
+    assert {_keys_per_lane(k) for _, _, _, k, _ in smem.SPLIT_SHAPES} == \
+        {0, 2, 4, 8}
+    # each split shape splits on an H100 (4 blocks an SM × 132 SMs × 8
+    # warps), with 8 warps a block or the 4 of a k = 1024 layout
+    for _, rows, n, _, _ in smem.SPLIT_SHAPES:
+        assert st_ops.warps_per_stream(rows, n, 4 * 132 * 8, 4) > 1
     assert {_keys_per_lane(k) for _, _, k in smem.DELTA_SHAPES
             if k <= 8192} == {0, 2, 4, 8}
     assert {s for _, s in smem.PROBE_SHAPES if s % 4} and \

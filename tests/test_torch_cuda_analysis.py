@@ -22,6 +22,7 @@ pytestmark = pytest.mark.cuda
 INSTANTIATIONS = (
     {f"tick_kernel<{s}, {k}>" for s in ("false", "true")
      for k in (0, 2, 4, 8)}
+    | {f"tick_kernel<false, {k}, true>" for k in (0, 2, 4, 8)}
     | {f"delta_stats_kernel<{k}>" for k in (0, 2, 4, 8)}
     | {"delta_stats_sorted_kernel", "vnge_q_kernel<true>",
        "vnge_q_kernel<false>", "bsr_matvec_kernel<128>",
@@ -67,6 +68,37 @@ def test_launch_attrs_agree_with_the_tick_residency(cuda):
     big = dispatch.launch_attrs("stream_tick", 0, 1, 1 << 14, 8)
     assert not big["accepted"] and big["blocks_per_sm"] == 0
     assert not dispatch.smem_fits("stream_tick", 1 << 14, 8, cuda)
+
+
+def test_split_tick_launch_keeps_the_one_warp_launch(cuda):
+    """W = 1 launches as before any split existed: at the cells' shapes,
+    the phase 8 pool and a ragged k, the one-warp instantiation, grid,
+    block and shared memory, with the 64 registers and 4 blocks an SM it
+    read on the H100. W = 2, 4 and 8 take the split instantiation with
+    the same block and shared memory over 8 / W streams a block,
+    accepted within the card's limit; a W that does not divide a
+    block's warps is refused."""
+    for rows, k, j, kpl in ((524288, 8, 4, 2), (512, 8, 4, 2),
+                            (4096, 128, 8, 8), (1000, 37, 3, 4)):
+        res = dispatch.residency("stream_tick", k, j)
+        one = dispatch.launch_attrs("stream_tick", 0, rows, k, j)
+        assert dispatch.launch_attrs("stream_tick", 1, rows, k, j) == one
+        assert (one["kernel"], one["grid"], one["block"], one["dyn_smem"]) \
+            == (f"tick_kernel<false, {kpl}>", -(-rows // 8), 256,
+                dispatch.smem_bytes("stream_tick", k, j))
+        assert (one["registers"], one["blocks_per_sm"]) == (64, 4) \
+            == (res["registers"], res["blocks_per_sm"])
+        for w in (2, 4, 8):
+            rec = dispatch.launch_attrs("stream_tick", w, rows, k, j)
+            assert rec["accepted"], rec
+            assert rec["static_smem"] + rec["dyn_smem"] <= rec["smem_limit"]
+            assert (rec["kernel"], rec["grid"], rec["block"],
+                    rec["dyn_smem"], rec["blocks_per_sm"]) == (
+                f"tick_kernel<false, {kpl}, true>", -(-rows // (8 // w)),
+                256, one["dyn_smem"], 4)
+    for w in (3, 8):  # not a power of two; above a k = 1024 block's 4
+        rec = dispatch.launch_attrs("stream_tick", w, 32, 1024, 8)
+        assert not rec["accepted"] and rec["blocks_per_sm"] == 0
 
 
 def test_audit_is_clean_on_the_card(cuda):

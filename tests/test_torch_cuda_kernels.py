@@ -28,6 +28,7 @@ import torch
 from repro_torch.core.incremental import gate_delta_for_update
 from repro_torch.core.jsdist import jsdist_stream
 from repro_torch.core.sparse import stack_sparse_states
+from repro_torch.core.state import FingerState
 from repro_torch.engine.stream import stack_deltas, stack_states
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.bsr_spmv import ops as bs_ops
@@ -137,6 +138,86 @@ def test_stream_tick_stress_cases(cuda, label):
             for a, b in zip([got[0], *got[1].tensors().values()],
                             [other[0], *other[1].tensors().values()]):
                 torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def _flat(tick):
+    dist, state = tick
+    return [dist, *state.tensors().values()]
+
+
+def _split_runs(monkeypatch, entry, name, states, deltas, exact):
+    """Ticks of ``entry`` with each W of 1, 2, 4 and 8 that divides the
+    block's warps forced, out of place and in place on a copy; each W's
+    outputs, and the split count's step."""
+    k, j = deltas.senders.shape[-1], deltas.node_ids.shape[-1]
+    per_block = dispatch.residency("stream_tick", k, j)["streams_per_block"]
+    runs = {}
+    for w in (w for w in (1, 2, 4, 8) if per_block % w == 0):
+        monkeypatch.setattr(st_ops, "warps_per_stream",
+                            lambda *a, w=w, **kw: w)
+        split = st_ops.SPLIT_LAUNCHES[name]
+        out = entry(states, deltas, exact_smax=exact)
+        copy = states.map_tensors(torch.clone)
+        inp = entry(copy, deltas, exact_smax=exact, inplace=True)
+        assert inp[1].strengths.data_ptr() == copy.strengths.data_ptr()
+        assert st_ops.SPLIT_LAUNCHES[name] - split == (2 if w > 1 else 0)
+        runs[w] = (_flat(out), _flat(inp))
+    return runs
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("shape", [(64, 4099, 37, 3), (16, 65536, 128, 8),
+                                   (64, 1100, 8, 4), (64, 1100, 200, 4),
+                                   (32, 4104, 1024, 8)])
+def test_stream_tick_split_warps_bit_equal(cuda, shape, exact, monkeypatch):
+    """Every W gives the W = 1 launch's bits, in place and out of place,
+    on the stress rows (an emptying delta, a revive, joins and leaves,
+    every lane gated off, a hub and a star) at an n that is not a
+    multiple of 32·W, at the serving k, at the cells' k = 8 and with the
+    shared-memory sort (k = 200, and k = 1024 at 4 warps a block)."""
+    states, deltas = st_parity.make_case(*shape, seed=11, device=cuda,
+                                         kind="stress")
+    runs = _split_runs(monkeypatch, st_ops.stream_tick_fused, "stream_tick",
+                       states, deltas, exact)
+    want = runs[1][0]
+    for w, outs in runs.items():
+        for got in outs:
+            for i, (a, b) in enumerate(zip(got, want)):
+                assert torch.equal(a, b), (w, i)
+    st_parity.compare((want[0], FingerState(*want[1:])),
+                      stream_tick_ref(states, deltas, exact_smax=exact),
+                      f"stream_tick {shape}")
+
+
+def test_stream_tick_stacked_split_warps_bit_equal(cuda, monkeypatch):
+    cases = [st_parity.make_case(32, 4099, 37, 3, seed=s, device=cuda,
+                                 kind="stress") for s in range(3)]
+    states = stack_states([c[0] for c in cases])
+    deltas = stack_deltas([c[1] for c in cases])
+    runs = _split_runs(monkeypatch, st_ops.stream_tick_fused_stacked,
+                       "stream_tick_stacked", states, deltas, True)
+    for w, outs in runs.items():
+        for got in outs:
+            assert all(torch.equal(a, b) for a, b in zip(got, runs[1][0])), w
+
+
+def test_stream_tick_split_follows_the_shape(cuda):
+    """Unforced, few long rows split and rows that fill the card do not;
+    the split count moves only for the former."""
+    capacity, per_block = st_ops._capacity(torch.cuda.current_device(), 8,
+                                           2)
+    assert per_block == 8
+    for rows, n, split in ((64, 2048, 1), (capacity, 40, 0)):
+        states, deltas = st_parity.make_case(rows, n, 8, 2, seed=2,
+                                             device=cuda)
+        before = dict(st_ops.SPLIT_LAUNCHES)
+        launches = st_ops.LAUNCHES["stream_tick"]
+        got = st_ops.stream_tick_fused(states, deltas, exact_smax=True)
+        assert st_ops.LAUNCHES["stream_tick"] == launches + 1
+        assert st_ops.SPLIT_LAUNCHES == {
+            **before, "stream_tick": before["stream_tick"] + split}
+        st_parity.compare(got, stream_tick_ref(states, deltas,
+                                               exact_smax=True))
 
 
 def test_stream_tick_residency(cuda):

@@ -142,3 +142,27 @@ def test_engine_tick_and_run_match_per_stream_reference(method):
     t2, _ = eng.run(state_to_port(states), delta_to_port(seq))
     assert t2.shape == (2, 8)
     assert_close(t2[0], tdist, method)
+
+
+# an H100 at the serving layouts: 4 blocks an SM × 132 SMs × 8 warps
+H100_WARPS = 4 * 132 * 8
+
+
+@pytest.mark.parametrize("rows, n, kw, want", [
+    (524288, 12288, {}, 1),      # as-oregon: the rows fill the card
+    (512, 262144, {}, 8),        # amazon-copurchase: 512 blocks of 8 warps
+    (2048, 1024, {}, 2),         # 4 warps a stream would overflow it
+    (H100_WARPS, 1 << 20, {}, 1),
+    (1000, 1 << 20, {}, 4),      # 8 warps a stream would overflow the card
+    (512, 512, {}, 4),           # too short a row for 8 whole row steps
+    (512, 256, {}, 2),
+    (512, 255, {}, 1),
+    (512, 262144, {"warps_per_block": 4}, 4),  # a large-k layout
+    (512, 262144, {"warps_per_block": 3}, 1),
+    (H100_WARPS - 1, 1 << 20, {}, 1),  # below the card, yet no W fits
+])
+def test_warps_per_stream(rows, n, kw, want):
+    """The tick kernel's warps a stream from the launch's shape alone:
+    one where the rows fill the card's resident warps, else the most of
+    2, 4 and 8 that still fit and leave each warp a whole row step."""
+    assert tops.warps_per_stream(rows, n, H100_WARPS, **kw) == want

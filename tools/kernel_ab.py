@@ -128,9 +128,11 @@ def build(csrc: Path, out: Path, stems, extra=None) -> dict:
     return libs
 
 
-def tick_launch(lib, name, states, deltas, exact, inplace, store=False):
+def tick_launch(lib, name, states, deltas, exact, inplace, store=False,
+                warps=None):
     """One launch of a tick library's ``<name>_launch`` on the given
-    tensors; returns (dist, output tensors)."""
+    tensors; returns (dist, output tensors). ``warps`` (warps a stream)
+    is passed to a dense tick whose launcher takes it."""
     import torch
 
     from repro_torch.kernels import dispatch
@@ -148,7 +150,7 @@ def tick_launch(lib, name, states, deltas, exact, inplace, store=False):
     j = deltas.node_ids.shape[-1]
     fn = getattr(lib, f"{name}_launch")
     dims = [rows, n] + ([states.edge_weights.shape[-1]] if store else []) \
-        + [k, j, int(exact)]
+        + [k, j, int(exact)] + ([] if warps is None else [warps])
     fn.argtypes = [_P] * (len(st) + len(dl) + 3 + len(outs)) \
         + [_I] * len(dims) + [_P]
     fn.restype = _I
@@ -185,6 +187,27 @@ def turns(label, fns, reps, setup=None):
     return got
 
 
+def takes_warps(lib) -> bool:
+    """Whether a stream tick library's launcher takes warps a stream: its
+    ``stream_tick_launch_attrs`` reports twice the grid for two warps a
+    stream as for one. A library from before the split ignores
+    ``which`` there, or lacks the export."""
+    fn = getattr(lib, "stream_tick_launch_attrs", None)
+    if fn is None:
+        return False
+    fn.argtypes = [_I, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_longlong, _P, ctypes.c_char_p, _I]
+    fn.restype = _I
+    grids = []
+    for which in (1, 2):
+        out = (ctypes.c_longlong * 16)()
+        name = ctypes.create_string_buffer(64)
+        if fn(which, 64, 8, 2, ctypes.cast(out, _P), name, len(name)):
+            return False
+        grids.append(out[0])
+    return grids[1] == 2 * grids[0]
+
+
 def ab_stream_tick(libs, base, args, res):
     import dataclasses
 
@@ -205,11 +228,14 @@ def ab_stream_tick(libs, base, args, res):
                                          seed=args.seed, device=dev,
                                          kind="stress")
     want = stream_tick_ref(states, deltas, exact_smax=True)
-    got = {w: tick_launch(lib, "stream_tick", states, deltas, True, False)
-           for w, lib in (("baseline", base["stream_tick"]),
-                          ("change", libs["stream_tick"]))}
+    # each library with its warps a stream: one, where the launcher takes it
+    sides = {"baseline": (base["stream_tick"], base["tick_warps"]),
+             "change": (libs["stream_tick"], 1)}
+    got = {w: tick_launch(lib, "stream_tick", states, deltas, True, False,
+                          warps=wps)
+           for w, (lib, wps) in sides.items()}
     again = tick_launch(libs["stream_tick"], "stream_tick", states, deltas,
-                        True, False)
+                        True, False, warps=1)
     from repro_torch.core.state import FingerState
 
     def as_state(r):
@@ -229,8 +255,10 @@ def ab_stream_tick(libs, base, args, res):
         for f in ("q", "s_total", "s_max", "strengths", "node_mask"):
             getattr(work, f).copy_(getattr(states, f))
 
-    def inplace(lib, d):
-        return lambda: tick_launch(lib, "stream_tick", work, d, True, True)
+    def inplace(side, d):
+        lib, wps = sides[side]
+        return lambda: tick_launch(lib, "stream_tick", work, d, True, True,
+                                   warps=wps)
 
     masked = dataclasses.replace(deltas, mask=torch.zeros_like(deltas.mask))
     first32 = dataclasses.replace(deltas, **{
@@ -240,17 +268,15 @@ def ab_stream_tick(libs, base, args, res):
                      ("first 32 lanes", first32)):
         res[f"stream_tick {label}"] = turns(
             f"stream_tick {label} B={BATCH}",
-            {"baseline": inplace(base["stream_tick"], d),
-             "change": inplace(libs["stream_tick"], d)}, 10, setup=restore)
+            {w: inplace(w, d) for w in sides}, 10, setup=restore)
     for b in (4096, 8192, 16384, 32768):
         sub = states.map_tensors(lambda t: t[:b])
         dsub = deltas.map_tensors(lambda t: t[:b])
         res[f"stream_tick out of place B={b}"] = turns(
             f"stream_tick out of place B={b}",
-            {w: (lambda lib=lib: tick_launch(lib, "stream_tick", sub, dsub,
-                                             True, False))
-             for w, lib in (("baseline", base["stream_tick"]),
-                            ("change", libs["stream_tick"]))}, 10)
+            {w: (lambda lib=lib, wps=wps: tick_launch(
+                lib, "stream_tick", sub, dsub, True, False, warps=wps))
+             for w, (lib, wps) in sides.items()}, 10)
 
 
 def ab_sparse_tick(libs, base, args, res):
@@ -716,6 +742,7 @@ def main() -> int:
         base["residency"] = ((base["stream_tick"], "stream_tick_residency")
                              if own else
                              (base["occupancy"], "baseline_tick_residency"))
+        base["tick_warps"] = 1 if takes_warps(base["stream_tick"]) else None
     libs = build(args.change.resolve() / "src" / "repro_torch" / "csrc",
                  ROOT / "build" / "kernel_ab" / "change", stems)
     res = {"card": card}
