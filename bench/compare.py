@@ -9,14 +9,21 @@ The numbers, each against the limit the configuration file states:
   streams and every recorded tick;
 - ``state_gap``: the widest relative gap of the state: a sampled
   stream's strength row (against the reference's s_max), and the
-  s_total of the streams whose scalars are checked (65,536 drawn from
-  the seed, or every stream where the batch is smaller);
+  s_total of the streams whose scalars are checked (drawn from the
+  seed: every stream, at most 65,536 and at most as many as hold 2^31
+  edges, `harness.scalar_streams`);
 - ``smax_gap``: the widest relative gap of those streams' s_max (the
   exact s_max the configuration guarantees);
 - ``q_gap``: the widest |Q − reference Q| of those streams;
 - ``mask_gap``: node-mask elements that differ (an exact comparison);
 - ``topk_gap``: judged ticks whose top-k is not the stable descending
   top-k of that tick's served scores (an exact comparison);
+- ``edge_gap`` (sparse_tick only): the widest gap of a sampled stream's
+  edge store against the reference's weight of the same edge after the
+  same ticks, relative to that stream's largest reference weight: every
+  edge its slot map holds, every live edge of the reference (a store
+  that lacks one holds 0 for it) and every slot that holds no edge
+  (against 0);
 - ``score_max`` and ``ref_score_max``: the largest score of the sampled
   streams, served and of the reference (readings, never compared).
 
@@ -29,7 +36,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 
 NUMBERS = ("score_gap", "state_gap", "smax_gap", "q_gap", "mask_gap",
-           "topk_gap")
+           "topk_gap", "edge_gap")
 
 
 def _finite(x: float) -> float:
@@ -94,6 +101,20 @@ def gaps(ticks: np.ndarray, scores: np.ndarray, state: Dict[str, np.ndarray],
         widen("q_gap", _finite(abs(state["q"][j] - want["q"])))
         out["mask_gap"] += float(np.sum(state["node_mask"][j]
                                         != want["node_mask"]))
+    return out
+
+
+def edge_gap(stores: Sequence, refs: Sequence[dict]) -> float:
+    """``edge_gap`` of the sampled streams: ``stores`` one ``(weights by
+    (lo, hi), values of the slots that hold no edge)`` a stream, ``refs``
+    the reference's weights by (lo, hi) (`reference.edges.weights`)."""
+    out = 0.0
+    for (got, free), want in zip(stores, refs):
+        scale = max(max(want.values(), default=0.0), 1e-30)
+        d = [abs(got.get(p, 0.0) - want.get(p, 0.0))
+             for p in set(got) | set(want)]
+        d.append(float(np.max(np.abs(free), initial=0.0)))
+        out = max(out, _finite(max(d) / scale))
     return out
 
 

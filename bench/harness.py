@@ -2,18 +2,21 @@
 the comparison with the reference that decides ``correct``.
 
 The system under test is `repro_torch.serving.FingerService` as its
-configuration file states it (``fused_tick``, ``local``,
-``double_buffered``, exact s_max, ``max_queue`` 2). The loop is closed
-with work dispatched ahead, as a producer that hands in each window of
-changes while the last one is scored:
+configuration file states it (``fused_tick`` or ``sparse_tick``,
+``local``, ``double_buffered``, exact s_max, ``max_queue`` 2; a
+``sparse_tick`` configuration's set-up and read-back are
+`bench.virtual`'s). The loop is closed with work dispatched ahead, as a
+producer that hands in each window of changes while the last one is
+scored:
 
     ingest(tick i)        # the copy of tick i's delta overlaps tick i-1
     scores(); top_anomalies(k)   # tick i-1's results on the host
     poll()                # launches tick i
 
-Every stream is scored on every tick and the top-k read on every tick.
-A tick's latency runs from the call of ``ingest`` with its delta to the
-return of its ``top_anomalies``.
+Every stream is scored on every tick and the top-k read on every tick;
+under ``sparse_tick`` ``ingest`` takes the tick's B per-stream virtual
+deltas. A tick's latency runs from the call of ``ingest`` with its delta
+to the return of its ``top_anomalies``.
 """
 from __future__ import annotations
 
@@ -30,9 +33,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from bench import compare, graphs, roofline, traffic
+from bench import compare, graphs, roofline, traffic, virtual
 from bench import trace as trace_mod
-from bench.reference import finger
+from bench.reference import edges, finger
 from bench.spec import Cell
 from repro_torch.core.state import FingerState
 from repro_torch.graphs.layout import NodeLayout
@@ -42,7 +45,8 @@ from repro_torch.serving.config import TopKSpec
 from repro_torch.serving.plans import build_plan
 
 REF_STREAMS = 32        # streams the reference follows, drawn from the seed
-SCALAR_STREAMS = 65_536  # streams whose Q, S and s_max it checks, likewise
+SCALAR_STREAMS = 65_536  # streams whose Q, S and s_max it checks, likewise,
+SCALAR_EDGES = 1 << 31   # and at most as many as hold this many edges
 JUDGE_EVERY = 64        # one tick in this many keeps its whole scores
 TRACED_TICKS = 64       # ticks under the profiler in a traced run
 BLOCK_EDGES = 60_000_000  # edges drawn at once while setting up
@@ -95,7 +99,12 @@ def service_config(cfg: dict) -> ServiceConfig:
 def make_inputs(cfg: dict, mix: dict, seed: int,
                 device: torch.device) -> Inputs:
     """The initial state of every stream's seed-defined graph, built on
-    the device in blocks, and the cycle of deltas."""
+    the device in blocks, and the cycle of deltas (under sparse_tick,
+    `virtual.make_inputs`' graphs and deltas)."""
+    if virtual.is_sparse(cfg):
+        return virtual.make_inputs(
+            cfg, mix, seed, device,
+            max(1, BLOCK_EDGES // int(cfg["graph"]["edges"])))
     svc, graph = cfg["service"], cfg["graph"]
     b, n_pad = svc["batch_size"], svc["n_pad"]
     k_pad, j_pad = svc["k_pad"], svc["j_pad"]
@@ -250,6 +259,31 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def scalar_streams(cfg: dict) -> int:
+    """How many streams' Q, S and s_max the comparison checks: all of
+    them, at most `SCALAR_STREAMS`, and at most as many as hold
+    `SCALAR_EDGES` edges, so that the reference's pass over their graphs
+    stays within a few seconds."""
+    edges = int(cfg["graph"]["edges"])
+    return min(SCALAR_STREAMS, cfg["service"]["batch_size"],
+               max(1, SCALAR_EDGES // edges))
+
+
+def traced_ticks(cfg: dict, window_ticks: int) -> int:
+    """The ticks a traced run profiles: `TRACED_TICKS`, at most as many
+    as the window held, and under sparse_tick at most
+    `virtual.TRACED_STREAM_TICKS` stream-ticks or
+    `virtual.TRACED_MIN_TICKS` ticks, whichever is more (each stream's
+    translation puts about ninety host operations, 24 KB, into the
+    trace)."""
+    ticks = min(TRACED_TICKS, max(1, window_ticks))
+    if virtual.is_sparse(cfg):
+        b = cfg["service"]["batch_size"]
+        ticks = min(ticks, max(virtual.TRACED_MIN_TICKS,
+                               virtual.TRACED_STREAM_TICKS // b))
+    return ticks
+
+
 def _profile(loop: Loop, device: torch.device, ticks: int):
     """A bounded run of ``ticks`` steady ticks under `torch.profiler`,
     read back as a `trace.Trace`."""
@@ -303,16 +337,24 @@ def serve(cell: Cell, seed: int, device: torch.device,
     b = config.batch_size
     sample = np.sort(rng.choice(b, size=min(REF_STREAMS, b),
                                 replace=False))
-    svc = FingerService(config, build_plan(config, device), inputs.states)
-    inputs.states = None
+    sparse = virtual.is_sparse(cfg)
+    if sparse:
+        svc = FingerService.open(config, inputs.graphs(), device=device)
+    else:
+        svc = FingerService(config, build_plan(config, device),
+                            inputs.states)
+        inputs.states = None
     judge_phase = int(rng.integers(JUDGE_EVERY))
-    scalar_sample = np.sort(rng.choice(b, size=min(SCALAR_STREAMS, b),
+    scalar_sample = np.sort(rng.choice(b, size=scalar_streams(cfg),
                                        replace=False))
     loop = Loop(svc, inputs, config.topk.k, sample, judge_phase,
                 scalar_sample)
     loop.start()
-    for _ in range(len(inputs.deltas) + 2):
+    for _ in range(virtual.WARM_STEPS if sparse else len(inputs.deltas) + 2):
         loop.step()
+    if sparse:
+        # a window may hold only a few sparse ticks: judge its first
+        loop.judge_phase = loop.read % JUDGE_EVERY
     _sync(device)
     return inputs, svc, loop
 
@@ -343,7 +385,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
         window_ticks = np.array(loop.t_in[first_tick:])
         attempted = b * int(((window_ticks >= t0)
                              & (window_ticks <= t1)).sum())
-        tr = _profile(loop, device, TRACED_TICKS) if trace else None
+        tr = _profile(loop, device, traced_ticks(
+            cfg, loop.ticks - first_tick)) if trace else None
         loop.align(int(cell.mix["cycle_ticks"]))
         _sync(device)
     except Exception as e:  # a tick that raised fails the run
@@ -415,6 +458,7 @@ class Outputs:
     final_tick: int
     judged: list            # (scores, values, ids) of the judged ticks
     k: int
+    maps: Optional[list] = None     # sparse: the sampled streams' SlotMaps
 
     @classmethod
     def collect(cls, svc: FingerService, loop: Loop) -> "Outputs":
@@ -426,25 +470,42 @@ class Outputs:
         at = torch.as_tensor(loop.scalar_sample, device=states.q.device)
         scalars = {f: getattr(states, f).index_select(0, at).double()
                    .cpu().numpy() for f in ("q", "s_total", "s_max")}
+        maps = None if svc.slot_maps is None \
+            else [svc.slot_maps[s] for s in sample]
         return cls(sample, np.arange(loop.read),
                    loop.scores[:loop.read].copy(), state,
                    loop.scalar_sample, scalars, loop.ticks,
-                   list(loop.judged), loop.k)
+                   list(loop.judged), loop.k, maps)
 
 
 def program_numbers(cfg: dict, seed: int, host: Dict[str, torch.Tensor],
                     outputs: Outputs, device: torch.device):
     """The comparison's numbers of the program's outputs, and the
-    reference of the sampled streams."""
+    reference of the sampled streams. A sparse_tick configuration's
+    state is read back into dense ids first, and what its slot maps
+    leave over is judged too (`virtual.read_back`)."""
     period = len(host["dw"])
     refs = reference_streams(cfg, seed, outputs.sample, host,
                              torch.float64, device)
     want = reference_scalars(cfg, seed, host, outputs.scalar_sample,
                              outputs.final_tick % period, device)
-    numbers = compare.gaps(outputs.ticks, outputs.scores, outputs.state,
+    state, left = outputs.state, None
+    if outputs.maps is not None:
+        state, left = virtual.read_back(state, outputs.maps,
+                                        virtual.Relabel(cfg, seed))
+    numbers = compare.gaps(outputs.ticks, outputs.scores, state,
                            refs, outputs.final_tick, period,
                            scalars=(outputs.scalars, want))
     numbers["topk_gap"] = compare.topk_gap(outputs.judged, outputs.k)
+    if left is not None:
+        numbers["mask_gap"] += left["stray_masks"]
+        phase = outputs.final_tick % period
+        for s, ref in zip(left["stray_strengths"], refs):
+            numbers["state_gap"] = max(numbers["state_gap"], s / max(
+                ref["states"](phase)["s_max"], 1e-30))
+        numbers["edge_gap"] = compare.edge_gap(
+            left["stores"], reference_edges(cfg, seed, outputs.sample, host,
+                                            phase))
     return numbers, refs
 
 
@@ -459,7 +520,7 @@ def reference_scalars(cfg: dict, seed: int, host: Dict[str, torch.Tensor],
         ids = torch.as_tensor(streams[b0:b0 + block], dtype=torch.int64)
         got = finger.batch_scalars(cfg["graph"], seed, ids.to(device),
                                    {f: v[:, ids] for f, v in host.items()},
-                                   cfg["service"]["n_pad"], ticks)
+                                   virtual.id_space(cfg), ticks)
         parts.append({f: v.cpu().numpy() for f, v in got.items()})
     return {f: np.concatenate([p[f] for p in parts]) for f in parts[0]}
 
@@ -469,10 +530,21 @@ def reference_streams(cfg: dict, seed: int, sample: np.ndarray,
                       device: torch.device) -> List[dict]:
     """The reference (or, in bfloat16, the control) of each sampled
     stream over the cycle of deltas."""
-    n_pad = cfg["service"]["n_pad"]
+    n_pad = virtual.id_space(cfg)
     return [finger.cycle(cfg["graph"], seed, int(s),
                          {f: host[f][:, int(s)].numpy() for f in host},
                          n_pad, dtype=dtype, device=device)
+            for s in sample]
+
+
+def reference_edges(cfg: dict, seed: int, sample: np.ndarray,
+                    host: Dict[str, torch.Tensor], ticks: int,
+                    dtype: torch.dtype = torch.float64) -> List[dict]:
+    """The reference's (or, in bfloat16, the control's) edge weights of
+    each sampled stream after ``ticks`` deltas of the cycle."""
+    return [edges.weights(cfg["graph"], seed, int(s),
+                          {f: host[f][:, int(s)].numpy() for f in host},
+                          virtual.id_space(cfg), ticks, dtype)
             for s in sample]
 
 
@@ -492,6 +564,13 @@ def control_numbers(cfg: dict, seed: int, host: Dict[str, torch.Tensor],
     numbers = compare.gaps(outputs.ticks, scores, state, refs,
                            outputs.final_tick, period)
     numbers["topk_gap"] = 0.0
+    if virtual.is_sparse(cfg):
+        phase = outputs.final_tick % period
+        ctrl_edges = reference_edges(cfg, seed, outputs.sample, host, phase,
+                                     torch.bfloat16)
+        numbers["edge_gap"] = compare.edge_gap(
+            [(w, np.zeros(0)) for w in ctrl_edges],
+            reference_edges(cfg, seed, outputs.sample, host, phase))
     return numbers
 
 

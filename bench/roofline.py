@@ -15,6 +15,14 @@ work after a later change renames, splits, fuses or moves a kernel.
 
 It counts less than the bytes bound of PERF.md's kernel table, which
 writes every element of the rows it names.
+
+`sparse_bytes_needed` is the sparse tick's count beside it, over the
+slot space: the same for the n_slots rows, the scalars, the changed row
+elements and the score, and 4 bytes for an empty delta; a non-empty
+one's delta also carries each lane's edge slot (24 · k_pad + 8 · j_pad
+bytes read once), and each live lane writes its edge's weight in the
+(m_pad,) edge store (4 bytes; the edge store is never read: ``w_old``
+rides in the delta).
 """
 from __future__ import annotations
 
@@ -50,3 +58,17 @@ def bytes_needed(senders: np.ndarray, receivers: np.ndarray,
     per_stream = (2 * n_pad * F32 + 6 * F32 + 5 * F32 * k_pad
                   + 2 * F32 * j_pad + F32 * written + F32)
     return int(np.where(empty, F32, per_stream).sum())
+
+
+def sparse_bytes_needed(senders: np.ndarray, receivers: np.ndarray,
+                        dw: np.ndarray, mask: np.ndarray,
+                        node_ids: np.ndarray, node_flag: np.ndarray,
+                        n_slots: int) -> int:
+    """Bytes one tick's stacked delta needs moved by the sparse tick, the
+    delta in the reference's dense ids (translation keeps its lanes and
+    slots): lane fields (B, k_pad), node slots (B, j_pad)."""
+    live = mask > 0
+    empty = ~live.any(axis=1) & ~(node_flag != 0).any(axis=1)
+    edge_slots = F32 * dw.shape[1] + F32 * live.sum(axis=1)
+    return bytes_needed(senders, receivers, dw, mask, node_ids, node_flag,
+                        n_slots) + int(np.where(empty, 0, edge_slots).sum())

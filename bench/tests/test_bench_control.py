@@ -1,35 +1,42 @@
 """`correct` comes out false for the control and for each fault the
 cells can have, and true for the program as it is: a whole run of a
 cell cut to CPU size (the look for a card skipped), with the timed path
-broken underneath."""
+broken underneath; the ``sparse_tick`` cell's own faults too (its
+translation, its edge store)."""
+import pytest
 import torch
 
 import repro_torch.engine.stream as engine_stream
 from bench import compare, harness
 from bench.tests import tiny
+from repro_torch.core.sparse import SlotMap
 from repro_torch.serving.plans import LocalPlan
 
 CPU = torch.device("cpu")
 SEED = 2**31 + 77
+CELLS = {"dense": tiny.cell, "sparse": tiny.sparse_cell}
 
 
 def _run(cell=None):
     return harness.run(cell or tiny.cell(), SEED, 0.3, False, CPU, 0.0)
 
 
-def test_the_program_as_it_is_is_correct():
-    out = _run()
+@pytest.mark.parametrize("kind", CELLS)
+def test_the_program_as_it_is_is_correct(kind):
+    cell = CELLS[kind]()
+    out = _run(cell)
     assert out["correct"] and out["failed"] == 0 and out["attempted"] > 0
-    assert set(out["checks"]) == set(tiny.cell().config["limits"])
+    assert set(out["checks"]) == set(cell.config["limits"])
     assert set(out["readings"]) == {"score_max", "ref_score_max"}
 
 
-def _limits():
-    return tiny.cell().config["limits"]
+def _limits(cell=None):
+    return (cell or tiny.cell()).config["limits"]
 
 
-def test_the_bfloat16_control_is_not_correct():
-    cell = tiny.cell()
+@pytest.mark.parametrize("kind", CELLS)
+def test_the_bfloat16_control_is_not_correct(kind):
+    cell = CELLS[kind]()
     inputs, svc, loop = harness.serve(cell, SEED, CPU)
     for _ in range(40):
         loop.step()
@@ -37,13 +44,86 @@ def test_the_bfloat16_control_is_not_correct():
     outputs = harness.Outputs.collect(svc, loop)
     numbers, refs = harness.program_numbers(cell.config, SEED, inputs.host,
                                             outputs, CPU)
-    assert compare.passed(compare.judge(numbers, _limits()))
+    assert compare.passed(compare.judge(numbers, _limits(cell)))
     ctrl = harness.control_numbers(cell.config, SEED, inputs.host, outputs,
                                    refs, CPU)
-    checks = compare.judge(ctrl, _limits())
+    checks = compare.judge(ctrl, _limits(cell))
     assert not compare.passed(checks)
-    for name in ("score_gap", "state_gap", "smax_gap", "q_gap"):
+    for name in ("score_gap", "state_gap", "smax_gap", "q_gap") + (
+            ("edge_gap",) if kind == "sparse" else ()):
         assert checks[name]["value"] > checks[name]["limit"], name
+
+
+def _patch_stage(monkeypatch, fault, stream=3):
+    """Break ``stream``'s translation once, on its first delta with a live
+    lane that changes a weight: ``fault(slot_map, delta, lane, real)``
+    returns the staged translation."""
+    real = SlotMap.stage
+    done = []
+
+    def stage(self, delta):
+        lanes = ((delta.mask > 0) & (delta.dw != 0)).nonzero().flatten()
+        if done or self.stream != stream or not len(lanes):
+            return real(self, delta)
+        done.append(True)
+        return fault(self, delta, int(lanes[0]), real)
+
+    monkeypatch.setattr(SlotMap, "stage", stage)
+    return done
+
+
+def test_two_virtual_ids_swapped_in_a_streams_translation(monkeypatch):
+    def swapped(sm, delta, lane, real):
+        a = int(delta.senders[lane])
+        others = {int(delta.receivers[lane]), a}
+        c = next(v for v in sm.node_slot if v not in others)
+        slots = sm.node_slot
+        slots[a], slots[c] = slots[c], slots[a]
+        try:
+            return real(sm, delta)
+        finally:
+            slots[a], slots[c] = slots[c], slots[a]
+
+    done = _patch_stage(monkeypatch, swapped)
+    out = _run(tiny.sparse_cell())
+    assert done and not out["correct"]
+    assert out["checks"]["state_gap"]["value"] > \
+        out["checks"]["state_gap"]["limit"]
+
+
+def test_one_live_lane_dropped(monkeypatch):
+    def dropped(sm, delta, lane, real):
+        staged = real(sm, delta)
+        staged.delta.mask[lane] = 0.0
+        return staged
+
+    done = _patch_stage(monkeypatch, dropped)
+    out = _run(tiny.sparse_cell())
+    assert done and not out["correct"]
+    # the edge store is written whole, so the lane's next tick mends it;
+    # the strengths are moved by each change and keep the loss
+    assert out["checks"]["state_gap"]["value"] > \
+        out["checks"]["state_gap"]["limit"]
+
+
+def test_the_edge_store_scatter_skipped(monkeypatch):
+    real = engine_stream.sparse_tick_fused
+
+    def skipped(states, deltas, exact_smax=False, inplace=False):
+        before = states.edge_weights.clone()
+        dist, new = real(states, deltas, exact_smax=exact_smax,
+                         inplace=inplace)
+        new.edge_weights.copy_(before)
+        return dist, new
+
+    monkeypatch.setattr(engine_stream, "sparse_tick_fused", skipped)
+    out = _run(tiny.sparse_cell())
+    assert not out["correct"]
+    checks = out["checks"]
+    assert checks["edge_gap"]["value"] > checks["edge_gap"]["limit"]
+    # the scatter is all that was left out
+    assert all(c["value"] <= c["limit"] for n, c in checks.items()
+               if n != "edge_gap")
 
 
 def _patch_tick(monkeypatch, fn):

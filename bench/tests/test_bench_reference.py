@@ -1,6 +1,7 @@
 """The plain reference: FINGER-H̃ and JS distances by hand on tiny
 graphs, against the port's own plain tick in float64 on a seeded cell,
-and its every-stream scalars against its per-stream cycle."""
+its every-stream scalars against its per-stream cycle, and its edge
+weights against its strength rows."""
 import math
 
 import numpy as np
@@ -8,7 +9,7 @@ import pytest
 import torch
 
 from bench import harness
-from bench.reference import finger
+from bench.reference import edges, finger
 from bench.tests import tiny
 
 
@@ -116,3 +117,34 @@ def test_every_stream_scalars_match_the_cycle():
                 s = refs[stream]["states"](ticks)
                 for f in ("q", "s_total", "s_max"):
                     assert got[f][j] == pytest.approx(s[f], abs=1e-12)
+
+
+def test_edge_weights_by_hand_and_against_the_strength_rows():
+    # tick 0 deletes the pendant edge and names the absent pair (0, 3)
+    # with no change; tick 1 brings the pendant back
+    d = _deltas([(2, 3, -1.0), (3, 2, 1.0)])
+    d["senders"][0, 1], d["receivers"][0, 1], d["mask"][0, 1] = 0, 3, 1.0
+    after = edges.weights_from(LO, HI, W, 4, d, 6, 1)
+    back = edges.weights_from(LO, HI, W, 4, d, 6, 2)
+    assert after == {(0, 1): 1.0, (0, 2): 1.0, (1, 2): 1.0, (2, 3): 0.0,
+                     (0, 3): 0.0}
+    assert back[(2, 3)] == 1.0
+
+    cell = tiny.cell(batch_size=3)
+    cfg = cell.config
+    inputs = harness.make_inputs(cfg, cell.mix, 21, torch.device("cpu"))
+    refs = harness.reference_streams(cfg, 21, np.arange(3), inputs.host,
+                                     torch.float64, torch.device("cpu"))
+    for ticks in (3, 8, 16):
+        got = harness.reference_edges(cfg, 21, np.arange(3), inputs.host,
+                                      ticks)
+        for j, w in enumerate(got):
+            s = np.zeros(128)
+            for (a, b), x in w.items():
+                s[a] += x
+                s[b] += x
+            np.testing.assert_allclose(
+                s, refs[j]["states"](ticks)["strengths"], atol=1e-12)
+        ctrl = harness.reference_edges(cfg, 21, np.arange(3), inputs.host,
+                                       ticks, torch.bfloat16)
+        assert set(ctrl[0]) == set(got[0]) and ctrl[0] != got[0]

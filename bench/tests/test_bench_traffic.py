@@ -1,6 +1,7 @@
 """The delta cycle: exact w_old, the graph back at its start after each
-cycle, distinct pairs in a forward half, the mix's proportions, and
-generation that does not depend on which streams share a block."""
+cycle, distinct pairs in a forward half, the mix's proportions, the
+streams an active share leaves sending, and generation that does not
+depend on which streams share a block."""
 import numpy as np
 import pytest
 import torch
@@ -11,8 +12,15 @@ from bench.tests.tiny import GRAPH
 K_PAD, J_PAD = 8, 4
 
 
-def _block(seed, b=6, graph=GRAPH):
+def _mix(active_share=None):
     mix = spec.load_mix("steady")
+    if active_share is not None:
+        mix["active_share"] = active_share
+    return mix
+
+
+def _block(seed, b=6, graph=GRAPH, mix=None):
+    mix = mix or _mix()
     streams = torch.arange(b, dtype=torch.int64)
     keys, offsets, w = graphs.edges(graph, seed, streams)
     d = traffic.block_deltas(mix, graph, seed, streams, keys, offsets, w,
@@ -32,10 +40,12 @@ def _graph_dicts(keys, offsets, w, seed, b, graph=GRAPH):
     return out
 
 
+@pytest.mark.parametrize("active_share", [None, 0.25])
 @pytest.mark.parametrize("seed", [0, 12345, 2**31 + 7, 2**33 + 1])
-def test_cycle_is_exact_and_returns_every_graph_to_its_start(seed):
+def test_cycle_is_exact_and_returns_every_graph_to_its_start(seed,
+                                                             active_share):
     b = 6
-    mix, keys, offsets, w, d = _block(seed, b)
+    mix, keys, offsets, w, d = _block(seed, b, mix=_mix(active_share))
     start = _graph_dicts(keys, offsets, w, seed, b)
     for r in range(b):
         edges, live = dict(start[r][0]), set(start[r][1])
@@ -75,6 +85,39 @@ def test_a_forward_half_touches_each_pair_once():
         m = d["mask"][:p, r] > 0
         pairs = list(zip(d["senders"][:p, r][m], d["receivers"][:p, r][m]))
         assert len(pairs) == len(set(pairs))
+
+
+def _sending(d):
+    """(period, B): whether each stream sends a non-empty delta."""
+    return (d["mask"] > 0).any(-1) | (d["node_flag"] != 0).any(-1)
+
+
+def test_an_active_share_of_one_is_the_mix_without_the_key():
+    _, _, _, _, without = _block(31, 12)
+    _, _, _, _, one = _block(31, 12, mix=_mix(1.0))
+    for f in without:
+        assert np.array_equal(without[f], one[f]), f
+    assert _sending(without).all()
+
+
+def test_an_active_share_leaves_the_others_empty_and_their_inverses_too():
+    b = 400
+    mix, _, _, _, full = _block(2024, b)
+    _, _, _, _, d = _block(2024, b, mix=_mix(1 / 16))
+    p = int(mix["cycle_ticks"])
+    sending = _sending(d)
+    assert 0.045 < sending[:p].mean() < 0.08
+    # the inverse of forward tick t is tick 2p - 1 - t: the same streams
+    assert np.array_equal(sending[p:], sending[:p][::-1])
+    # a stream that sends, sends the steady mix's lanes, and those that
+    # the steady mix dropped as repeats of a tick the share left empty
+    on = sending[:p]
+    kept = full["mask"][:p][on] > 0
+    assert (d["mask"][:p][on][kept] > 0).all()
+    for f in ("senders", "receivers", "dw", "w_old"):
+        assert np.array_equal(d[f][:p][on][kept], full[f][:p][on][kept]), f
+    off = ~sending
+    assert not d["mask"][off].any() and not d["node_flag"][off].any()
 
 
 def test_weights_and_changes_are_multiples_of_the_quantum():

@@ -18,12 +18,17 @@ reverse order (an edge that flaps, then flaps back). So
 
 Mix parameters (fractions are of the streams or lanes named):
 
-- ``stream_zipf``, ``rate_scale``: every stream sends a delta on every
-  tick. A stream's rate of changes is ``rate_scale · u^-stream_zipf``
-  for a uniform ``u`` drawn once for the stream (a Pareto weight: a Zipf
-  law over the streams' ranks), and a tick's count of live lanes is that
-  rate times an exponential draw (bursts), rounded up, at least 1 and at
-  most k_pad;
+- ``active_share`` (1 where the key is absent): the share of streams
+  that send a delta in a tick, drawn from the seed for each stream and
+  forward tick; every other stream sends an empty delta (no live lane,
+  no node flag, padded to k_pad and j_pad), and so does it in that
+  tick's inverse;
+- ``stream_zipf``, ``rate_scale``: a stream that sends a delta in a
+  tick sends 1 to k_pad changes. A stream's rate of changes is
+  ``rate_scale · u^-stream_zipf`` for a uniform ``u`` drawn once for the
+  stream (a Pareto weight: a Zipf law over the streams' ranks), and a
+  tick's count of live lanes is that rate times an exponential draw
+  (bursts), rounded up, at least 1 and at most k_pad;
 - ``existing_share``: live lanes on an edge the graph has; of those
   ``delete_share`` are deleted and the rest re-weighted by a uniform
   factor within ``±reweight``. A stream's changed edges are spread
@@ -55,7 +60,7 @@ FIELDS = ("senders", "receivers", "dw", "w_old", "mask", "node_ids",
 # salts of the traffic's hash purposes
 _SALT = {name: 100 + i for i, name in enumerate((
     "rate", "lanes", "kind", "edge_off", "op", "factor", "absent_off",
-    "partner", "add_w", "join", "toggle"))}
+    "partner", "add_w", "join", "toggle", "active"))}
 
 
 def period(mix: dict) -> int:
@@ -117,7 +122,11 @@ def block_deltas(mix: dict, graph: dict, seed: int, streams: torch.Tensor,
     rate = float(mix["rate_scale"]) * u_rate ** -float(mix["stream_zipf"])
     burst = -torch.log1p(-graphs.uniform(key["lanes"], s, ticks))
     n_lanes = torch.clamp(torch.ceil(rate * burst), 1, k_pad).to(torch.int64)
+    # u < 1 always, so an active_share of 1 leaves every stream sending
+    active = graphs.uniform(key["active"], s, ticks) \
+        < float(mix.get("active_share", 1.0))
     live = lane < torch.gather(n_lanes, 1, t_of_g.expand(rows, g_count))
+    live &= torch.gather(active, 1, t_of_g.expand(rows, g_count))
     existing = graphs.uniform(key["kind"], s, g) \
         < float(mix["existing_share"])
     u_op = graphs.uniform(key["op"], s, g)
@@ -189,9 +198,10 @@ def block_deltas(mix: dict, graph: dict, seed: int, streams: torch.Tensor,
     # node slots: slot 0 a join of a fresh inactive slot, slot 1 a toggle
     # of a fresh isolated live node; later slots padding
     n_live_s = graphs.n_live(graph, seed, s)
-    join = graphs.uniform(key["join"], s, ticks) < float(mix["join_share"])
-    toggle = graphs.uniform(key["toggle"], s, ticks) \
-        < float(mix["toggle_share"])
+    join = active & (graphs.uniform(key["join"], s, ticks)
+                     < float(mix["join_share"]))
+    toggle = active & (graphs.uniform(key["toggle"], s, ticks)
+                       < float(mix["toggle_share"]))
     j_before = torch.cumsum(join.to(torch.int64), 1) - join.to(torch.int64)
     t_before = torch.cumsum(toggle.to(torch.int64), 1) \
         - toggle.to(torch.int64)
